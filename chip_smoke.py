@@ -3,24 +3,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the pooled account-proof verifier behind
-`BatchVerifier` — at the headline shape: 4096 distinct account proofs over a
-4096-account trie (the bench.py recipe, 576 B nodes, depth-sorted), served
-by `BatchVerifier(BucketConfig.account(), 4096)` with pinned depth and pool
-segment schedules. Phases, each printing a line:
+Drives the port's two main paths at full width, through the entry points a
+user would call:
+
+  * the pooled account-proof verifier behind `BatchVerifier`, at the
+    headline shape: 4096 distinct account proofs over a 4096-account trie
+    (the bench.py recipe, 576 B nodes, depth-sorted), served by
+    `BatchVerifier(BucketConfig.account(), 4096)` with pinned depth and pool
+    segment schedules;
+  * the two-level account -> storage verifier `verify_storage_grouped` on
+    the grouped-storage world of bench_configs.py: 512 accounts, each with a
+    256-slot storage trie, 8 slot proofs per account (4096 slot proofs).
+
+Phases, each printing a line:
 
   1. device: a CUDA device, or exit 1; the card's name and power limit;
-  2. build: the kernels (csrc/*.cu) built from the checkout;
+  2. build: the kernels (csrc/*.cu) built from the checkout, one nvcc per
+     source in parallel;
   3. K1 (keccak) against its plain version on the card, and the oracle;
   4. K2 (MPT walk, modes hinted and exact) against its plain version on the
      card: the headline batch, an adversarial batch, corrupted hints;
-  5. main path: three requests through BatchVerifier; every headline proof
-     FOUND with the oracle's leaf; results equal the plain path on the card;
-     both kernels launched by the main path;
-  6. timings with CUDA events, kernel path against plain path.
+  5. account path: three requests through BatchVerifier; every headline
+     proof FOUND with the oracle's leaf; results equal the plain path on the
+     card; K1, hinted and exact launched by the path;
+  6. timings with CUDA events, kernel path against plain path;
+  7. K2 in mode bounded against its plain version: the full-width slot
+     batch, crafted over-bound nodes (latch, then the exact re-run), a trie
+     with inline children (served without a latch), the adversarial batch;
+  8. K3 (keccak from raw words) against its plain version and K1: edge
+     lengths and the headline pool, with an oracle sample;
+  9. storage path: every account and slot FOUND with the oracle's values;
+     equal to the plain path on the card and to verify_storage_batch (both
+     dedup forms) on a 1:1 subset; a tampered account proof turns exactly
+     its own slots INVALID; K1, hinted and bounded launched by the path;
+ 10. timings: the grouped storage call (kernel path against plain path),
+     a torch.profiler breakdown of the call and of each of its stages
+     alone (launches, host and device time), K2 bounded against exact on
+     the slot batch.
 
 Any failed check exits non-zero. The next-to-last line is a JSON object of
-the kernels; the last line is {"ok": true, "device": {...}}. Uses no JAX.
+the kernels; the last line is {"ok": true, "device": {...}}. Uses no JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -35,24 +58,47 @@ import numpy as np
 import torch
 
 try:
-    from zk_state_proofs_tpu import native
-    from zk_state_proofs_tpu.oracle import EthTrie, keccak256 as oracle_keccak, rlp
-    from zk_state_proofs_tpu.witness import pack_proofs
-    from zk_state_proofs_tpu.witness.pack import host_item_offsets
-    from zk_state_proofs_tpu_torch.models import BatchVerifier
+    from zk_state_proofs_tpu_torch import native
+    from zk_state_proofs_tpu_torch.models import (BatchVerifier, verify_storage_batch,
+                                                  verify_storage_grouped)
+    from zk_state_proofs_tpu_torch.models.verifier import (_slot_key_nibbles,
+                                                           _storage_core_grouped)
     from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
     from zk_state_proofs_tpu_torch.ops import keccak_cuda, mpt, mpt_cuda
     from zk_state_proofs_tpu_torch.ops._build import load_library
+    from zk_state_proofs_tpu_torch.ops.account import decode_account
+    from zk_state_proofs_tpu_torch.ops.rlp import bytes_to_nibbles_device
+    from zk_state_proofs_tpu_torch.oracle import EthTrie, keccak256 as oracle_keccak, rlp
     from zk_state_proofs_tpu_torch.utils.config import BucketConfig
-    from zk_state_proofs_tpu_torch.utils.profiling import cuda_timer
+    from zk_state_proofs_tpu_torch.utils.profiling import cuda_timer, device_profile
+    from zk_state_proofs_tpu_torch.witness import host_item_offsets, pack_proofs
     from zk_state_proofs_tpu_torch.witness_bridge import (
-        BATCH_FIELDS, POOL_FIELDS, account_entries, packed_to_tensors)
+        BATCH_FIELDS, POOL_FIELDS, account_entries, packed_to_tensors, storage_world)
 except ImportError as exc:  # run outside a checkout of the repo
     print(f"FAIL: the repository's packages are not importable here: {exc}")
     sys.exit(1)
 
 N_ACCOUNTS = 4096
 TIMED_ITERS = 20
+STORAGE_WORLD = (512, 8, 256)  # accounts, slot proofs per account, slots per trie
+
+# The least time a kernel could take (`bound_ms`): the larger of its bytes
+# over the memory rate and its operations over the ALU rate.
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# 32-bit integer operations: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
+# (Hopper SM; the float32 rate of 67 TFLOP/s counts 128 lanes and FMA as 2).
+# Keccak's operations are LOP3 and SHF, which issue only on the integer ALU
+# pipe; the FMA pipe's IMAD executes neither, so it does not raise this rate.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# per absorbed rate block, in 32-bit instructions as the card can issue them
+# (three-input LOP3, one funnel shift per half of a 64-bit rotate), 24 rounds
+# of: theta 80 (each column's 5-way XOR 2 LOP3 per half = 20, rot1 of the 5
+# column sums 10 SHF, D folded into one 3-way XOR per lane half = 50); rho
+# and pi 48 (24 rotates, none by 0 or 32); chi 50 (b ^ (~c & d) is one LOP3
+# per lane half); iota 2. Plus the absorb: 17 lanes x 2 XOR.
+KECCAK_OPS_PER_BLOCK = 24 * (80 + 48 + 50 + 2) + 17 * 2
+# per walked node, a floor: 18 RLP header decodes of 16 operations each
+WALK_OPS_PER_NODE = 18 * 16
 DEVICE = "cuda"
 
 
@@ -70,6 +116,17 @@ def check(cond, msg: str) -> None:
         fail(msg)
 
 
+def max_err(got, want):
+    """Largest |got - want| over tensors (integers: 0 means identical)."""
+    err = 0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"shape/dtype {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    return err
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -77,27 +134,6 @@ def card_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def native_host_ok(repo: str) -> bool:
-    """Whether the tracked native host library (built elsewhere with
-    -march=native) runs on this CPU: probed in a child process, since an
-    unsupported instruction kills the process that executes it."""
-    code = (
-        "import numpy as np\n"
-        "from zk_state_proofs_tpu import native\n"
-        "from zk_state_proofs_tpu.oracle import EthTrie, keccak256\n"
-        "from zk_state_proofs_tpu.witness import pack_proofs\n"
-        "assert native.available()\n"
-        "assert native.keccak256(b'abc') == keccak256(b'abc')\n"
-        "t = EthTrie(hasher=native.keccak256)\n"
-        "ks = [native.keccak256(b'p%d' % i) for i in range(40)]\n"
-        "[t.insert(k, b'\\x01' * 40) for k in ks]\n"
-        "p = pack_proofs([(t.root_hash(), t.get_proof(k), k) for k in ks], max_nodes=8, node_len=576)\n"
-        "p.pool(); p.pool_hints()\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
-                         capture_output=True, text=True, timeout=300)
-    return out.returncode == 0
 
 
 def main() -> None:
@@ -124,11 +160,8 @@ def main() -> None:
 
     # ---- witnesses ----------------------------------------------------
     t0 = time.time()
-    if native_host_ok(repo):
-        hasher_name = "native (C++)"
-    else:
-        native._load_failed = True  # every host path takes its Python form
-        hasher_name = "oracle (pure Python; the native host library does not run here)"
+    hasher_name = ("native (C++, built here with g++)" if native.available()
+                   else "oracle (pure Python; the native host library did not build)")
     entries, leaves = account_entries(N_ACCOUNTS)
     headline = pack_proofs(entries, node_len=576)
     segs = headline.depth_segments()
@@ -140,16 +173,6 @@ def main() -> None:
     ht = packed_to_tensors(headline, dev)
     batch = [ht[k] for k in BATCH_FIELDS]
     pool = [ht[k] for k in POOL_FIELDS]
-
-    def max_err(got, want):
-        """Largest |got - want| over tensors (integers: 0 means identical)."""
-        err = 0
-        for g, w in zip(got, want):
-            check(g.shape == w.shape and g.dtype == w.dtype,
-                  f"shape/dtype {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
-            if g.numel():
-                err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-        return err
 
     # ---- 3. K1 against its plain version --------------------------------
     rng = torch.Generator().manual_seed(0)
@@ -246,18 +269,14 @@ def main() -> None:
         f"pool segments {svc.pool_segments}")
     requests = [entries, entries[::3],
                 adv_entries + inline_entries + entries[:N_ACCOUNTS // 8]]
-    for counts in (keccak_cuda.LAUNCHES, mpt_cuda.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    zero_counts()
     t0 = time.time()
     results = [svc.verify(req) for req in requests]
     torch.cuda.synchronize()
     serve_s = time.time() - t0
-    launches = {"keccak256": keccak_cuda.LAUNCHES["keccak256"],
-                "hinted": mpt_cuda.LAUNCHES["hinted"],
-                "exact": mpt_cuda.LAUNCHES["exact"]}
-    for name, n in launches.items():
-        check(n > 0, f"the main path launched the {name} kernel no time")
+    launches = read_counts()
+    for name in ("keccak256", "hinted", "exact"):
+        check(launches[name] > 0, f"the main path launched the {name} kernel no time")
     head = results[0]
     check(head.status.shape == (N_ACCOUNTS,) and head.values.shape == (N_ACCOUNTS, 128),
           "unexpected result shapes")
@@ -340,25 +359,58 @@ def main() -> None:
     for mode, (km, pm) in k2.items():
         log(f"[6 time] K2 walk {mode}, {N_ACCOUNTS} proofs in {len(segs)} "
             f"segments: kernel {km:.4f} ms, plain {pm:.4f} ms on {card}")
-    check("jax" not in sys.modules, "JAX was imported")
+    # ---- 7-10. K2 bounded, K3, the storage path, their timings ----------
+    sw = storage_witness(dev)
+    adv_args = [abatch[0], abatch[1], abatch[2], adig, *abatch[3:]]
+    bnd = phase_bounded(sw, adv_args, inline_entries, dev)
+    k3 = phase_k3(pn, pl, dig_k, card, dev)
+    sto = phase_storage(sw, card, dev)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "zk_state_proofs_tpu"))
+    check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
+    # ---- the kernels line -------------------------------------------------
+    # each main path's launches, counted from zero over its own run (phases
+    # 5 and 9); `launches` is their sum
+    by_path = {"accounts": launches, "storage": sto["launches"]}
+    headline_lens = (batch[0], batch[1], batch[2])
     src = "zk_state_proofs_tpu_torch/csrc/"
-    kernels = [
-        {"name": "keccak256", "route": "cuda", "source": src + "keccak.cu",
-         "replaces": "zk_state_proofs_tpu/ops/keccak_pallas.py:122",
-         "launches": launches["keccak256"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-    ]
+    kernels = [kernel_row(
+        "keccak256", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:122",
+        by_path, "keccak256", k1_err, k1_ms, k1_plain_ms, keccak_bound(pl, psegs))]
     for mode in ("hinted", "exact"):
-        kernels.append({
-            "name": f"mpt_walk_{mode}", "route": "cuda", "source": src + "mpt_walk.cu",
-            "replaces": "zk_state_proofs_tpu/ops/mpt_pallas.py:165",
-            "launches": launches[mode], "max_abs_err": k2_err[mode],
-            "ms": k2[mode][0], "plain_ms": k2[mode][1]})
+        kernels.append(kernel_row(
+            f"mpt_walk_{mode}", src + "mpt_walk.cu",
+            "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, mode,
+            k2_err[mode], k2[mode][0], k2[mode][1],
+            walk_bound(*headline_lens, batch[4].shape[1], 128, mode == "hinted")))
+    kernels.append(kernel_row(
+        "mpt_walk_bounded", src + "mpt_walk.cu",
+        "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, "bounded",
+        bnd["err"], sto["bounded_ms"], sto["bounded_plain_ms"], sto["bounded_bound"]))
+    # K3 is on no main path (as in the JAX package): 0 launches there
+    kernels.append(kernel_row(
+        "keccak256_raw", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:211",
+        by_path, "keccak256_raw", k3["err"], k3["ms"], k3["plain_ms"],
+        keccak_bound(pl, ((pn.shape[0], pn.shape[1]),))))
+    log(f"[bound] the least time for each kernel's work: bytes over "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, 32-bit integer operations over "
+        f"{INT32_OPS_PER_S / 1e12:.2f} T/s, the larger of the two")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
+
+
+def zero_counts():
+    for counts in (keccak_cuda.LAUNCHES, mpt_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts():
+    """Every kernel wrapper's launch count since zero_counts()."""
+    return {**keccak_cuda.LAUNCHES, **mpt_cuda.LAUNCHES}
 
 
 def seg_offsets(segments):
@@ -367,6 +419,354 @@ def seg_offsets(segments):
         offs.append(off)
         off += cnt
     return offs
+
+
+def kernel_row(name, source, replaces, by_path, counter, err, ms, plain_ms, bound):
+    bound_ms, bound_by = bound
+    paths = {path: counts.get(counter, 0) for path, counts in by_path.items()}
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}  # no PyTorch call computes keccak or an MPT walk
+
+
+def least_time(nbytes, ops):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def keccak_bound(lens, segments):
+    """Bound of hashing rows of these lengths in segments ((count, width),
+    ...): each row's first min(len, width) bytes read once, its length
+    read, its digest written."""
+    nbytes = ops = 0
+    for o, (c, w) in zip(seg_offsets(segments), segments):
+        ln = lens[o:o + c].to(torch.int64).clamp(min=0)
+        nbytes += int(ln.clamp(max=w).sum()) + 36 * c
+        ops += int((torch.div(ln, 136, rounding_mode="floor").clamp(max=w // 136) + 1).sum())
+    return least_time(nbytes, ops * KECCAK_OPS_PER_BLOCK)
+
+
+def walk_bound(nodes, node_lens, num_nodes, kn, max_value_len, hinted):
+    """Bound of walking these proofs: each live node's bytes, length and
+    digest (and hints) read once, the root, key and counts read, six words
+    and the value written; WALK_OPS_PER_NODE per live node."""
+    b, d, n = nodes.shape
+    live = torch.arange(d, device=nodes.device)[None] < num_nodes.clamp(0, d)[:, None]
+    n_live = int(live.sum())
+    nbytes = (int(node_lens.clamp(0, n)[live].sum()) + n_live * (36 + (36 if hinted else 0))
+              + b * (32 + kn + 8) + b * (24 + max_value_len))
+    return least_time(nbytes, n_live * WALK_OPS_PER_NODE)
+
+
+def storage_witness(dev):
+    """The grouped-storage world at full width, packed, on the card."""
+    t0 = time.time()
+    w = storage_world(*STORAGE_WORLD)
+    ap, sp = w.pack()
+    at, st = packed_to_tensors(ap, dev), packed_to_tensors(sp, dev)
+    s_dig = mpt.hash_nodes_pooled(*(st[k] for k in POOL_FIELDS))
+    slot_args = [st["nodes"], st["node_lens"], st["num_nodes"], s_dig, st["roots"],
+                 st["key_nibbles"], st["key_lens"]]
+    mb = (ap.nodes.nbytes + sp.nodes.nbytes) / 1e6
+    log(f"[witness] storage world {STORAGE_WORLD}: {ap.batch} account proofs "
+        f"{tuple(ap.nodes.shape)}, {sp.batch} slot proofs {tuple(sp.nodes.shape)} "
+        f"(node tables {mb:.1f} MB), slot pool {tuple(sp.pool()[0].shape)}, built "
+        f"in {time.time() - t0:.1f} s")
+    return {"world": w, "ap": ap, "sp": sp, "at": at, "st": st, "slot_args": slot_args,
+            "slots": torch.from_numpy(w.slots).to(dev),
+            "sa": torch.from_numpy(w.slot_accounts).to(dev)}
+
+
+def over_bound_entries():
+    """Well-formed RLP whose items pass the bounded windows (the JAX
+    package's tests/test_mpt_pallas.py:450-481): a 2-item list with a
+    100-byte item 0, and a 17-item list of 40-byte items."""
+    key = oracle_keccak(b"smoke-over-bound")
+    pair = rlp.encode([b"\x11" * 100, b"\x22"])
+    wide = rlp.encode([b"\x33" * 40] * 17)
+    return [(oracle_keccak(pair), [pair], key), (oracle_keccak(wide), [wide], key)]
+
+
+def phase_bounded(sw, adv_args, inline_entries, dev):
+    """Phase 7: K2 `bounded` against its plain version on the card (six
+    words and values), and the latch and exact re-run on over-bound nodes."""
+    err = 0
+
+    def compare(args, label, max_value_len):
+        nonlocal err
+        steps = args[0].shape[1] + 6
+        got = mpt_cuda.walk_lanes("bounded", *args, max_value_len, steps)
+        torch.cuda.synchronize()
+        want = mpt.walk_kernel_plain("bounded", *args, max_value_len, steps)
+        e = max_err(got, want)
+        err = max(err, e)
+        check(e == 0, f"K2 bounded differs from plain on {label} (max abs err {e})")
+        return got[0][:, 4]
+
+    ovf = compare(sw["slot_args"], f"the {sw['sp'].batch}-slot batch", 64)
+    check(int(ovf.sum()) == 0, "bounded latched on the honest slot batch")
+
+    packed = pack_proofs(over_bound_entries(), node_len=704)
+    t = packed_to_tensors(packed, dev, pool=False)
+    b = [t[k] for k in BATCH_FIELDS]
+    args = [b[0], b[1], b[2], mpt.hash_nodes(b[0], b[1]), *b[3:]]
+    check(bool((compare(args, "over-bound nodes", 64) == 1).all()),
+          "over-bound nodes did not latch the bounded flag")
+    exact_before = mpt_cuda.LAUNCHES["exact"]
+    got = mpt_cuda.walk_batch_cuda(*args, 64, with_reasons=True)
+    check(mpt_cuda.LAUNCHES["exact"] == exact_before + 1,
+          "over-bound nodes did not re-run in exact")
+    out, values = mpt.walk_kernel_plain("exact", *args, 64, packed.nodes.shape[1] + 6)
+    want = (out[:, 0], values, torch.where(out[:, 0] == mpt.FOUND, out[:, 3], 0), out[:, 5])
+    check(max_err(got, want) == 0, "the exact re-run differs from the plain exact walk")
+
+    packed = pack_proofs(inline_entries, node_len=576)
+    t = packed_to_tensors(packed, dev, pool=False)
+    b = [t[k] for k in BATCH_FIELDS]
+    args = [b[0], b[1], b[2], mpt.hash_nodes(b[0], b[1]), *b[3:]]
+    check(int(compare(args, "the inline-node trie", 64).sum()) == 0,
+          "bounded latched on inline children")
+    compare(adv_args, "the adversarial batch", 128)
+    log(f"[7 K2] walk kernel == plain in mode bounded (six words and values) on "
+        f"the {sw['sp'].batch}-slot batch (no latch), 2 over-bound nodes (latched, "
+        f"re-ran in exact with the plain exact results), {len(inline_entries)} "
+        f"inline-node proofs (no latch) and the adversarial batch; max abs err {err}")
+    return {"err": err}
+
+
+def phase_k3(pn, pl, dig_k, card, dev):
+    """Phase 8: K3 against its plain version, K1 and the oracle; K3 against
+    K1 and the plain version in time on the headline pool."""
+    edge = [0, 1, 3, 4, 7, 8, 135, 136, 137, 271, 272, 535, 536, 576]
+    rng = torch.Generator().manual_seed(1)
+    err = 0
+    for width in (576, 573):
+        rows = torch.randint(0, 256, (len(edge), width), generator=rng,
+                             dtype=torch.uint8).to(dev)
+        lens = torch.tensor(edge, dtype=torch.int32, device=dev)
+        got = keccak_cuda.keccak256_cuda_raw(rows, lens)
+        torch.cuda.synchronize()
+        err = max(err, max_err([got, got], [tkeccak.keccak256_raw(rows, lens),
+                                            keccak_cuda.keccak256_cuda(rows, lens)]))
+        host, gh = rows.cpu().numpy(), got.cpu().numpy()
+        for i, n in enumerate(edge):
+            if n <= width:
+                check(bytes(gh[i]) == oracle_keccak(bytes(host[i, :n])),
+                      f"K3 digest of length {n} (width {width}) differs from the oracle")
+    got = keccak_cuda.keccak256_cuda_raw(pn, pl)
+    err = max(err, max_err([got, got], [tkeccak.keccak256_raw(pn, pl), dig_k]))
+    pn_h, pl_h, gh = pn.cpu().numpy(), pl.cpu().numpy(), got.cpu().numpy()
+    for i in range(0, pn_h.shape[0], 701):
+        check(bytes(gh[i]) == oracle_keccak(bytes(pn_h[i, :pl_h[i]])),
+              f"K3 digest of pool row {i} differs from the oracle")
+    check(err == 0, f"K3 differs from its plain version or K1 (max abs err {err})")
+
+    def timed(fn):
+        def run(i):
+            pn[:, -1] = i & 0xFF  # padding byte: distinct work, same digests
+            fn(pn, pl)
+        return cuda_timer(run, TIMED_ITERS)
+
+    t = {"k3": timed(keccak_cuda.keccak256_cuda_raw), "k1": timed(keccak_cuda.keccak256_cuda)}
+    t["k1_2"], t["k3_2"] = timed(keccak_cuda.keccak256_cuda), timed(keccak_cuda.keccak256_cuda_raw)
+    plain_ms = timed(tkeccak.keccak256_raw)
+    ms, k1_ms = min(t["k3"], t["k3_2"]), min(t["k1"], t["k1_2"])
+    dev_us = {name: 1e3 * kernel_device_ms(lambda i: fn(pn, pl), kname)
+              for name, fn, kname in (("K3", keccak_cuda.keccak256_cuda_raw, "keccak256_raw"),
+                                      ("K1", keccak_cuda.keccak256_cuda, "keccak256_rows"))}
+    log(f"[8 K3] keccak256_raw kernel == plain == K1 on edge lengths {edge} at "
+        f"widths 576 and 573 and the {pn.shape[0]}-row headline pool; oracle sample "
+        f"ok; max abs err 0")
+    log(f"[8 time] headline pool, {pn.shape[0]} rows x {pn.shape[1]} B, one launch: "
+        f"K3 {ms:.4f} ms, K1 {k1_ms:.4f} ms, K3 plain {plain_ms:.4f} ms "
+        f"(runs {t}); device time per launch (torch.profiler, 20 launches): "
+        f"K3 {dev_us['K3']:.2f} us, K1 {dev_us['K1']:.2f} us on {card}")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def kernel_device_ms(fn, name_part, iters=20):
+    """Device ms per call of the kernels whose name holds `name_part`, from
+    a torch.profiler window of `iters` calls of fn(i)."""
+    prof = device_profile(fn, iters)
+    return sum(ms for name, ms, _ in prof["top"] if name_part in name)
+
+
+def storage_fields(res):
+    """The eight result arrays of a storage result, as tensors on the CPU."""
+    if isinstance(res, tuple):
+        a_status, acct, s_status, s_values, s_vlens = res
+        arrs = [a_status, acct["storage_root"], acct["nonce"], acct["balance"],
+                acct["code_hash"], s_status, s_values, s_vlens]
+        return [x.cpu() for x in arrs]
+    return [torch.from_numpy(np.asarray(getattr(res, f))) for f in (
+        "account_status", "storage_root", "nonce", "balance", "code_hash",
+        "slot_status", "slot_values", "slot_value_lens")]
+
+
+def phase_storage(sw, card, dev):
+    """Phases 9 and 10: the storage path through verify_storage_grouped,
+    checked against the oracle, the plain path and verify_storage_batch;
+    then its timings and K2 bounded against exact."""
+    w, ap, sp, at, st = sw["world"], sw["ap"], sw["sp"], sw["at"], sw["st"]
+    n_acc, n_slots = ap.batch, sp.batch
+    sa = w.slot_accounts
+    zero_counts()
+    t0 = time.time()
+    res = verify_storage_grouped(ap, sp, w.slots, sa, device=dev)
+    torch.cuda.synchronize()
+    host_s = time.time() - t0
+    launches = read_counts()
+    for name in ("keccak256", "hinted", "bounded"):
+        check(launches[name] > 0, f"the storage path launched the {name} kernel no time")
+    check(res.account_status.shape == (n_acc,) and res.slot_values.shape == (n_slots, 64),
+          "unexpected storage result shapes")
+    check(bool((res.account_status == mpt.FOUND).all()), "an account is not FOUND")
+    check(bool((res.slot_status == mpt.FOUND).all()), "a slot is not FOUND")
+    check(all(res.slot_value(i) == v for i, v in enumerate(w.slot_values)),
+          "a slot value differs from the oracle")
+    for a, leaf in enumerate(w.account_leaves):
+        nonce, balance, sroot, code = rlp.decode(leaf)
+        check(int.from_bytes(bytes(res.nonce[a]), "big") == int.from_bytes(nonce, "big")
+              and int.from_bytes(bytes(res.balance[a]), "big") == int.from_bytes(balance, "big")
+              and bytes(res.storage_root[a]) == sroot and bytes(res.code_hash[a]) == code,
+              f"account {a}: decoded fields differ from the oracle leaf")
+    got = storage_fields(res)
+
+    core_args = ([at[k] for k in BATCH_FIELDS], [at[k] for k in POOL_FIELDS],
+                 at["pool_hints"], st["nodes"], st["node_lens"], st["num_nodes"],
+                 [st[k] for k in POOL_FIELDS], sw["slots"], sw["sa"])
+    check(max_err(got, storage_fields(plain_storage(*core_args))) == 0,
+          "the storage path differs from the plain path on the card")
+
+    n1 = min(512, n_slots)  # a 1:1 subset: slot j with its own copy of its account's proof
+    a1 = pack_proofs([w.account_entries[a] for a in sa[:n1]], node_len=ap.nodes.shape[2])
+    s1 = pack_proofs(w.storage_entries[:n1], node_len=sp.nodes.shape[2])
+    want1 = [x[torch.from_numpy(sa[:n1]).long()] for x in got[:5]] + [x[:n1] for x in got[5:]]
+    for dedup in (True, False):
+        r = verify_storage_batch(a1, s1, w.slots[:n1], dedup=dedup, device=dev)
+        check(max_err(storage_fields(r), want1) == 0,
+              f"verify_storage_batch(dedup={dedup}) differs from the grouped path")
+
+    bad_row = 5
+    entries = list(w.account_entries)
+    proof = [bytes(x) for x in entries[bad_row][1]]
+    leaf = bytearray(proof[-1])
+    leaf[-1] ^= 1
+    proof[-1] = bytes(leaf)
+    entries[bad_row] = (entries[bad_row][0], proof, entries[bad_row][2])
+    rb = verify_storage_grouped(pack_proofs(entries, node_len=ap.nodes.shape[2]), sp,
+                                w.slots, sa, device=dev)
+    mine = sa == bad_row
+    check(rb.account_status[bad_row] == mpt.INVALID
+          and bool((np.delete(rb.account_status, bad_row) == mpt.FOUND).all())
+          and bool((rb.slot_status[mine] == mpt.INVALID).all())
+          and bool((rb.slot_status[~mine] == mpt.FOUND).all())
+          and bool((rb.slot_values[~mine] == res.slot_values[~mine]).all()),
+          "a tampered account proof did not turn exactly its own slots INVALID")
+    log(f"[9 storage] verify_storage_grouped on the card: {n_acc} accounts and "
+        f"{n_slots} slots FOUND with the oracle's values, nonces, balances, "
+        f"storage roots and code hashes ({host_s:.3f} s host time incl. the "
+        f"host-to-card copy); equal to the plain path on the card and to "
+        f"verify_storage_batch (dedup True and False) on {n1} slots; a tampered "
+        f"account proof turned exactly its {int(mine.sum())} slots INVALID; "
+        f"launches {launches}")
+
+    # ---- 10. timings ----
+    slots36 = torch.zeros((n_slots, 36), dtype=torch.uint8, device=dev)
+    slots36[:, :32] = sw["slots"]
+    args36 = core_args[:7] + (slots36, sw["sa"])
+    bal = torch.from_numpy(res.balance.astype(np.int64).sum(1)).to(dev)
+    fold = torch.from_numpy(res.slot_values.astype(np.int64).sum(1)
+                            + (res.slot_value_lens.astype(np.int64) << 8)).to(dev)
+    acc_a = torch.zeros(n_acc, dtype=torch.int64, device=dev)
+    acc_s = torch.zeros(n_slots, dtype=torch.int64, device=dev)
+    accv = torch.zeros(n_slots, dtype=torch.int64, device=dev)
+
+    def storage_iter(i, kernels):
+        # distinct work per iteration: the last padding byte of every node
+        # row and slot changes; results do not (bench_configs.py's recipe)
+        p = i & 0xFF
+        for t in (at, st):
+            t["nodes"][:, :, -1] = p
+            t["pool_nodes"][:, -1] = p
+        slots36[:, -1] = p
+        a_st, acct, s_st, s_v, s_vl = (_storage_core_grouped if kernels
+                                       else plain_storage)(*args36)
+        acc_a.add_(a_st + acct["balance"].to(torch.int64).sum(1))
+        acc_s.add_(s_st)
+        accv.add_(s_v.to(torch.int64).sum(1) + (s_vl.to(torch.int64) << 8))
+
+    times = {}
+    for label, kern in (("plain", False), ("kernel", True), ("kernel2", True),
+                        ("plain2", False)):
+        for x in (acc_a, acc_s, accv):
+            x.zero_()
+        times[label] = cuda_timer(lambda i: storage_iter(i, kern), TIMED_ITERS)
+        n = TIMED_ITERS + 2
+        check(bool((acc_s == n * mpt.FOUND).all()) and bool((acc_a == n * (mpt.FOUND + bal)).all())
+              and bool((accv == n * fold).all()),
+              f"perturbed padding changed the storage results ({label} path)")
+    k_ms = min(times["kernel"], times["kernel2"])
+    p_ms = min(times["plain"], times["plain2"])
+    log(f"[10 time] grouped storage verify, {n_acc} accounts + {n_slots} slots: "
+        f"kernel path {k_ms:.4f} ms/batch = {n_slots / k_ms * 1e3:,.0f} slots/s; "
+        f"plain path {p_ms:.4f} ms/batch = {n_slots / p_ms * 1e3:,.0f} slots/s "
+        f"(runs {times}) on {card}")
+
+    # the whole core call and each of its stages alone, on the same inputs,
+    # each under torch.profiler over 10 calls (launches include copies)
+    a_out = mpt.verify_proofs_pooled(*core_args[0], *core_args[1], core_args[2],
+                                     max_value_len=128)
+    acct = decode_account(*a_out[1:])
+    s_knib, s_klen = _slot_key_nibbles(slots36)
+    s_roots = torch.index_select(acct["storage_root"], 0, sw["sa"].to(torch.int64))
+    stages = {
+        "whole call": lambda i: _storage_core_grouped(*args36),
+        "account level": lambda i: mpt.verify_proofs_pooled(
+            *core_args[0], *core_args[1], core_args[2], max_value_len=128),
+        "decode_account": lambda i: decode_account(*a_out[1:]),
+        "slot keys": lambda i: _slot_key_nibbles(slots36),
+        "slot level": lambda i: mpt.verify_proofs_pooled(
+            *core_args[3:6], s_roots, s_knib, s_klen, *core_args[6], max_value_len=64,
+            hinted=False)}
+    for name, fn in stages.items():
+        prof = device_profile(fn, 10)
+        top = "; ".join(f"{n[:60]} {ms * 1e3:.1f} us x{c:.0f}" for n, ms, c in prof["top"])
+        log(f"[10 profile] grouped storage, {name}, kernel path, torch.profiler over 10 "
+            f"calls: host {prof['wall_ms']:.4f} ms/call, device busy "
+            f"{prof['busy_ms']:.4f} ms/call "
+            f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), {prof['launches']:.0f} "
+            f"device launches/call" + (f"; top by device time: {top}"
+                                       if name == "whole call" else "") + f" on {card}")
+
+    sargs = sw["slot_args"]
+    steps = sargs[0].shape[1] + 6
+
+    def walk(mode, fn=mpt_cuda.walk_lanes):
+        def run(i):
+            sargs[0][:, :, -1] = i & 0xFF
+            fn(mode, *sargs, 64, steps)
+        return cuda_timer(run, TIMED_ITERS)
+
+    wt = {"bounded": walk("bounded"), "exact": walk("exact")}
+    wt["exact_2"], wt["bounded_2"] = walk("exact"), walk("bounded")
+    b_ms, e_ms = min(wt["bounded"], wt["bounded_2"]), min(wt["exact"], wt["exact_2"])
+    b_plain_ms = walk("bounded", mpt.walk_kernel_plain)
+    dev_us = {}
+    for m in ("bounded", "exact", "exact", "bounded"):  # the lower of two windows each
+        us = 1e3 * kernel_device_ms(lambda i: mpt_cuda.walk_lanes(m, *sargs, 64, steps),
+                                    "mpt_walk")
+        dev_us[m] = min(dev_us.get(m, us), us)
+    log(f"[10 time] K2 on the {n_slots}-slot batch {tuple(sargs[0].shape)}: bounded "
+        f"{b_ms:.4f} ms, exact {e_ms:.4f} ms, bounded plain {b_plain_ms:.4f} ms "
+        f"(runs {wt}); device time per launch (torch.profiler, 20 launches): "
+        f"bounded {dev_us['bounded']:.2f} us, exact {dev_us['exact']:.2f} us on {card}")
+    return {"launches": launches, "bounded_ms": b_ms, "bounded_plain_ms": b_plain_ms,
+            "bounded_bound": walk_bound(*sargs[:3], sargs[5].shape[1], 64, False)}
 
 
 def adversarial_entries(entries):
@@ -398,25 +798,63 @@ def adversarial_entries(entries):
     return adv, inline
 
 
+def plain_walk(batch, digests, hints, max_value_len):
+    """walk_batch_cuda from the plain walk, on any device: hinted with
+    hints, bounded without; the exact re-run when any flag latches.
+    batch: (nodes, node_lens, num_nodes, roots, key_nibbles, key_lens)."""
+    args = (*batch[:3], digests, *batch[3:], max_value_len, batch[0].shape[1] + 6)
+    out, values = mpt.walk_kernel_plain("bounded" if hints is None else "hinted",
+                                        *args, hints=hints)
+    if bool((out[:, 4] != 0).any()):
+        out, values = mpt.walk_kernel_plain("exact", *args)
+    status = out[:, 0]
+    return status, values, torch.where(status == mpt.FOUND, out[:, 3], 0)
+
+
+def plain_table(pool, pool_hints=None, psegs=None):
+    """hash_nodes_pooled from the plain keccak: the per-proof digest table
+    (and hint table, with pool_hints)."""
+    pn, pl, pidx = pool
+    psegs = psegs or ((pn.shape[0], pn.shape[1]),)
+    dig = torch.cat([tkeccak.keccak256(pn[o:o + c, :w], pl[o:o + c])
+                     for o, (c, w) in zip(seg_offsets(psegs), psegs)])
+    if pool_hints is None:
+        return mpt.scatter_pool_payload(dig, pidx), None
+    table = mpt.scatter_pool_payload(torch.cat([dig, pool_hints], 1), pidx)
+    return table[..., :32], table[..., 32:]
+
+
 def plain_pooled(batch, pool, pool_hints, segs, psegs):
     """The pooled main path built from the plain versions only (plain keccak,
     row gather, plain hinted walk with the exact re-run), on any device."""
-    pn, pl, pidx = pool
-    dig = torch.cat([tkeccak.keccak256(pn[o:o + c, :w], pl[o:o + c])
-                     for o, (c, w) in zip(seg_offsets(psegs), psegs)])
-    table = mpt.scatter_pool_payload(torch.cat([dig, pool_hints], 1), pidx)
-    max_steps = batch[0].shape[1] + 6
+    dig, hints = plain_table(pool, pool_hints, psegs)
     outs = []
     for o, (cnt, d) in zip(seg_offsets(segs), segs):
         sl = slice(o, o + cnt)
-        args = (batch[0][sl, :d], batch[1][sl, :d], batch[2][sl], table[sl, :d, :32],
-                batch[3][sl], batch[4][sl], batch[5][sl], 128, max_steps)
-        out, values = mpt.walk_kernel_plain("hinted", *args, hints=table[sl, :d, 32:])
-        if bool((out[:, 4] != 0).any()):
-            out, values = mpt.walk_kernel_plain("exact", *args)
-        status = out[:, 0]
-        outs.append((status, values, torch.where(status == mpt.FOUND, out[:, 3], 0)))
+        seg = [batch[0][sl, :d], batch[1][sl, :d], *(x[sl] for x in batch[2:])]
+        outs.append(plain_walk(seg, dig[sl, :d], hints[sl, :d], 128))
     return tuple(torch.cat(p) for p in zip(*outs))
+
+
+def plain_storage(a_batch, a_pool, a_hints, s_nodes, s_lens, s_num, s_pool, slots,
+                  slot_accounts):
+    """models.verifier._storage_core_grouped from the plain versions only,
+    on any device: the same arguments and results."""
+    a_dig, a_h = plain_table(a_pool, a_hints)
+    a_status, a_values, a_vlens = plain_walk(a_batch, a_dig, a_h, 128)
+    acct = decode_account(a_values, a_vlens)
+    b = slots.shape[0]
+    knib = bytes_to_nibbles_device(tkeccak.keccak256(
+        slots, torch.full((b,), 32, dtype=torch.int32, device=slots.device)))
+    klen = torch.full((b,), 64, dtype=torch.int32, device=slots.device)
+    sa = slot_accounts.to(torch.int64)
+    s_roots = torch.index_select(acct["storage_root"], 0, sa)
+    s_dig, _ = plain_table(s_pool)
+    s_status, s_values, s_vlens = plain_walk(
+        [s_nodes, s_lens, s_num, s_roots, knib, klen], s_dig, None, 64)
+    account_ok = (a_status == mpt.FOUND) & acct["ok"]
+    s_status = torch.where(torch.index_select(account_ok, 0, sa), s_status, mpt.INVALID)
+    return a_status, acct, s_status, s_values, s_vlens
 
 
 def plain_service(svc, req):

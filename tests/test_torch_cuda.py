@@ -1,7 +1,7 @@
-"""Kernels K1 and K2 against their plain versions, on the card.
+"""Kernels K1, K2 and K3 against their plain versions, on the card.
 
 Every test here needs a CUDA device and skips without one. The file imports
-no JAX, so it runs on a machine with PyTorch alone:
+no JAX and nothing of the JAX package, so it runs on a machine with PyTorch alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -12,11 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from zk_state_proofs_tpu.oracle import EthTrie, keccak256, rlp
-from zk_state_proofs_tpu.witness import pack_proofs
-from zk_state_proofs_tpu.witness.pack import host_item_offsets
+from zk_state_proofs_tpu_torch.oracle import EthTrie, keccak256, rlp
 from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
 from zk_state_proofs_tpu_torch.ops import keccak_cuda, mpt, mpt_cuda
+from zk_state_proofs_tpu_torch.witness import host_item_offsets, pack_proofs
 from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS,
                                                       packed_to_tensors)
 
@@ -71,7 +70,7 @@ def _batch():
     return pack_proofs(entries, max_nodes=8, node_len=576)
 
 
-@pytest.mark.parametrize("mode", ["hinted", "exact"])
+@pytest.mark.parametrize("mode", ["hinted", "bounded", "exact"])
 def test_walk_kernel_matches_plain(dev, mode):
     packed = _batch()
     t = packed_to_tensors(packed, dev, pool=False)
@@ -95,7 +94,7 @@ def test_walk_kernel_matches_plain_on_fuzzed_batch(dev, seed):
     """Random byte flips in node bytes and lengths (walked against the
     digests of the unflipped nodes, so the flips are decoded), and random
     hint bytes: the kernel's six words and values equal the plain walk's
-    in both modes."""
+    in every mode."""
     packed = _batch()
     t = packed_to_tensors(packed, dev, pool=False)
     dig = mpt.hash_nodes(t["nodes"], t["node_lens"])  # of the unflipped nodes
@@ -106,8 +105,8 @@ def test_walk_kernel_matches_plain_on_fuzzed_batch(dev, seed):
             ln = int(packed.node_lens[i, j])
             for pos in rng.integers(0, ln, rng.integers(0, 3)):
                 packed.nodes[i, j, pos] = rng.integers(0, 256)
-            if rng.random() < 0.1:
-                packed.node_lens[i, j] = rng.integers(0, n)
+            if rng.random() < 0.1:  # lengths past the buffer too
+                packed.node_lens[i, j] = rng.integers(0, n + 64)
     t = packed_to_tensors(packed, dev, pool=False)
     b = [t[k] for k in BATCH_FIELDS]
     hints = host_item_offsets(packed.nodes.reshape(bb * d, n)).reshape(bb, d, 36)
@@ -115,9 +114,29 @@ def test_walk_kernel_matches_plain_on_fuzzed_batch(dev, seed):
     hints = np.where(flip, rng.integers(0, 256, hints.shape, dtype=np.uint8), hints)
     hints = torch.from_numpy(hints).to(dev)
     args = (b[0], b[1], b[2], dig, b[3], b[4], b[5], 128, d + 6)
-    for mode in ("hinted", "exact"):
+    for mode in ("hinted", "bounded", "exact"):
         got = mpt_cuda.walk_lanes(mode, *args, hints=hints)
         torch.cuda.synchronize()
         want = mpt.walk_kernel_plain(mode, *args, hints=hints)
         for g, w in zip(got, want):
             assert torch.equal(g, w), mode
+
+
+def test_keccak_raw_kernel_matches_plain_and_k1(dev):
+    """K3 on the edge lengths, at a width that is a multiple of 8 (576) and
+    at one that is not (573): equal to its plain version, to K1 and to the
+    oracle."""
+    edge = [0, 1, 3, 4, 7, 8, 135, 136, 137, 271, 272, 535, 536, 573]
+    rng = np.random.default_rng(7)
+    for width in (576, 573):
+        data = rng.integers(0, 256, (len(edge), width), dtype=np.uint8)
+        rows = torch.from_numpy(data).to(dev)
+        lens = torch.tensor(edge, dtype=torch.int32, device=dev)
+        before = keccak_cuda.LAUNCHES["keccak256_raw"]
+        got = keccak_cuda.keccak256_cuda_raw(rows, lens)
+        torch.cuda.synchronize()
+        assert keccak_cuda.LAUNCHES["keccak256_raw"] == before + 1
+        assert torch.equal(got, tkeccak.keccak256_raw(rows, lens))
+        assert torch.equal(got, keccak_cuda.keccak256_cuda(rows, lens))
+        for i, n in enumerate(edge):
+            assert bytes(got[i].cpu().numpy()) == keccak256(bytes(data[i, :n]))

@@ -71,6 +71,32 @@ def test_keccak_edge_lengths_match_jax_and_oracle():
     assert keccak_cuda.LAUNCHES == before
 
 
+RAW_EDGE_LENS = [0, 1, 3, 4, 7, 8, 135, 136, 137, 271, 272, 535, 536, 576]
+
+
+@pytest.mark.parametrize("width", [576, 579, 581, 137])
+def test_keccak_raw_matches_jax_and_oracle(width):
+    """The plain K3 (raw little-endian words, masked padding) at the edge
+    lengths, at widths that are and are not multiples of 8; lengths past
+    the width hash the zero-extended row, as K1 and the JAX keccak do."""
+    rng = np.random.default_rng(width)
+    data = rng.integers(0, 256, (len(RAW_EDGE_LENS), width), dtype=np.uint8)
+    lens = np.asarray(RAW_EDGE_LENS, dtype=np.int32)
+    td, tl = torch.from_numpy(data), torch.from_numpy(lens)
+    got = tkeccak.keccak256_raw(td, tl).numpy()
+    want = np.asarray(jkeccak.keccak256(jnp.asarray(data), jnp.asarray(lens)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, tkeccak.keccak256(td, tl).numpy())
+    for i, n in enumerate(lens):
+        if n <= width:
+            assert bytes(got[i]) == oracle_keccak(bytes(data[i, :n])), n
+    before = dict(keccak_cuda.LAUNCHES)
+    np.testing.assert_array_equal(keccak_cuda.keccak256_cuda_raw(td, tl).numpy(), got)
+    assert keccak_cuda.LAUNCHES == before
+    full = tkeccak.keccak256_raw(td).numpy()  # default lengths: the width
+    assert bytes(full[0]) == oracle_keccak(bytes(data[0]))
+
+
 def test_padding_bytes_do_not_change_digest():
     data, lens = _rows(4)
     noisy = data.copy()

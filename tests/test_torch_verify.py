@@ -11,8 +11,7 @@ import pytest
 import torch
 
 from zk_state_proofs_tpu.models import BatchVerifier as JaxBatchVerifier
-from zk_state_proofs_tpu.oracle import (EthTrie, MissingKeyError, TrieError,
-                                        keccak256, rlp)
+from zk_state_proofs_tpu.oracle import EthTrie, keccak256, rlp
 from zk_state_proofs_tpu.ops import mpt as jmpt
 from zk_state_proofs_tpu.utils.config import BucketConfig as JaxBucketConfig
 from zk_state_proofs_tpu.witness import pack_proofs
@@ -20,12 +19,16 @@ from zk_state_proofs_tpu_torch.models import (BatchVerifier, batch_commitment,
                                               diagnose_batch,
                                               verify_account_batch,
                                               verify_merkle_batch,
-                                              verify_merkle_proof)
+                                              verify_merkle_proof,
+                                              verify_storage_batch,
+                                              verify_storage_grouped)
+from zk_state_proofs_tpu_torch.oracle import MissingKeyError, TrieError
 from zk_state_proofs_tpu_torch.ops import mpt as tmpt
 from zk_state_proofs_tpu_torch.utils.config import BucketConfig
 from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, POOL_FIELDS,
                                                       account_entries,
-                                                      packed_to_tensors)
+                                                      packed_to_tensors,
+                                                      storage_world)
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +79,7 @@ def _adversarial_packed():
 def test_diagnose_reasons_match_jax():
     packed, _ = _adversarial_packed()
     want = jmpt.verify_proofs_diagnose(*(jnp.asarray(a) for a in packed.astuple()))
-    res = diagnose_batch(packed)
+    res = diagnose_batch(packed, device="cpu")
     for w, g in zip(want, (res.status, res.values, res.value_lens, res.reasons)):
         np.testing.assert_array_equal(g, np.asarray(w))
     assert list(res.reasons) == [tmpt.R_NONE, tmpt.R_NONE, tmpt.R_ROOT_MISSING,
@@ -86,8 +89,8 @@ def test_diagnose_reasons_match_jax():
     assert counts["invalid_root-missing"] == 1
     assert counts["invalid_bad-child-ref"] == 1
     # verify_proofs (unpooled) agrees with the pooled path
-    pooled = verify_merkle_batch(packed)
-    unpooled = verify_merkle_batch(packed, dedup=False)
+    pooled = verify_merkle_batch(packed, device="cpu")
+    unpooled = verify_merkle_batch(packed, dedup=False, device="cpu")
     np.testing.assert_array_equal(pooled.status, res.status)
     np.testing.assert_array_equal(unpooled.values, pooled.values)
     assert batch_commitment(pooled) == batch_commitment(unpooled)
@@ -95,20 +98,20 @@ def test_diagnose_reasons_match_jax():
 
 def test_verify_merkle_proof_raise_semantics():
     _, (t, root, keys) = _adversarial_packed()
-    assert verify_merkle_proof(root, t.get_proof(keys[7]), keys[7]) == (
+    assert verify_merkle_proof(root, t.get_proof(keys[7]), keys[7], device="cpu") == (
         b"\x05" + bytes([7]) * 40)
     absent = keccak256(b"absent-key")
     with pytest.raises(MissingKeyError):
-        verify_merkle_proof(root, t.get_proof(absent), absent)
+        verify_merkle_proof(root, t.get_proof(absent), absent, device="cpu")
     with pytest.raises(TrieError) as exc:
-        verify_merkle_proof(root, t.get_proof(keys[1]), keys[2])
+        verify_merkle_proof(root, t.get_proof(keys[1]), keys[2], device="cpu")
     assert not isinstance(exc.value, MissingKeyError)
 
 
 def test_verify_account_batch_decodes_leaves():
     entries, leaves = account_entries(64)
     packed = pack_proofs(entries[:8], node_len=576)
-    res, acct = verify_account_batch(packed)
+    res, acct = verify_account_batch(packed, device="cpu")
     assert res.all_found and acct["ok"].all()
     for i, (_, _, key) in enumerate(entries[:8]):
         assert res.value(i) == leaves[key]
@@ -121,7 +124,7 @@ def test_verify_account_batch_decodes_leaves():
 
 def test_batch_verifier_matches_jax_service():
     entries, _ = account_entries(96)
-    proto = BatchVerifier(BucketConfig.account(), batch_size=64)
+    proto = BatchVerifier(BucketConfig.account(), batch_size=64, device="cpu")
     proto.warmup(entries[:64])  # derives the pinned pool bucket
     sorted_batch = proto.pack(sorted(entries[:64], key=lambda e: -len(e[1])))
     segs = sorted_batch.depth_segments(tile=16)
@@ -152,7 +155,7 @@ def test_batch_verifier_matches_jax_service():
     assert tsvc.stats.batches == 3 and tsvc.stats.proofs == 64 + 26 + 7
     assert tsvc.stats.found == jsvc.stats.found
     with pytest.raises(NotImplementedError):
-        BatchVerifier(BucketConfig.account(), mesh=object())
+        BatchVerifier(BucketConfig.account(), mesh=object(), device="cpu")
 
 
 def test_packed_to_tensors_roundtrip(headline_256):
@@ -168,16 +171,28 @@ def test_packed_to_tensors_roundtrip(headline_256):
 
 
 def test_import_loads_neither_jax_nor_cuda():
+    """Importing the port, and running the storage path on the CPU, loads
+    no JAX, no module of the JAX package and no CUDA."""
     code = (
         "import sys, torch\n"
         "import zk_state_proofs_tpu_torch\n"
         "import zk_state_proofs_tpu_torch.ops.mpt, zk_state_proofs_tpu_torch.ops.mpt_cuda\n"
+        "import zk_state_proofs_tpu_torch.ops.keccak_cuda\n"
         "import zk_state_proofs_tpu_torch.models, zk_state_proofs_tpu_torch.witness_bridge\n"
-        "assert 'jax' not in sys.modules, 'jax loaded'\n"
+        "assert not torch.cuda.is_initialized(), 'cuda initialised'\n"
+        "from zk_state_proofs_tpu_torch.models import verify_storage_grouped\n"
+        "from zk_state_proofs_tpu_torch.witness_bridge import storage_world\n"
+        "w = storage_world(n_accounts=3, slots_per=2, slots_in_trie=8)\n"
+        "res = verify_storage_grouped(*w.pack(), w.slots, w.slot_accounts, device='cpu')\n"
+        "assert (res.slot_status == 1).all() and (res.account_status == 1).all()\n"
+        "assert [res.slot_value(i) for i in range(6)] == w.slot_values\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'zk_state_proofs_tpu' or m.startswith('zk_state_proofs_tpu.'))\n"
+        "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized(), 'cuda initialised'\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "clean" in out.stdout
 
@@ -192,3 +207,14 @@ def test_cuda_device_without_card_raises():
         verify_merkle_batch(packed, device="cuda")
     with pytest.raises(RuntimeError):
         BatchVerifier(BucketConfig.account(), device="cuda")
+    # the card is the default: a caller who names no device gets no CPU run
+    with pytest.raises(RuntimeError):
+        verify_merkle_batch(packed)
+    with pytest.raises(RuntimeError):
+        BatchVerifier(BucketConfig.account())
+    w = storage_world(n_accounts=2, slots_per=1, slots_in_trie=4)
+    ap, sp = w.pack()
+    with pytest.raises(RuntimeError):
+        verify_storage_grouped(ap, sp, w.slots, w.slot_accounts)
+    with pytest.raises(RuntimeError):
+        verify_storage_batch(ap, sp, w.slots)

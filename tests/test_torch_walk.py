@@ -178,7 +178,7 @@ def test_walk_kernel_plain_rejects_unknown_mode():
     packed = _pack(_adversarial_entries()[:2])
     t = _tensors(packed)
     with pytest.raises(ValueError):
-        tmpt.walk_kernel_plain("bounded", *t[:3], tmpt.hash_nodes(t[0], t[1]),
+        tmpt.walk_kernel_plain("ordered", *t[:3], tmpt.hash_nodes(t[0], t[1]),
                                *t[3:], 128, 8)
 
 

@@ -1,4 +1,5 @@
 // Kernel K1: batched Ethereum Keccak-256 (legacy 0x01 ... 0x80 padding).
+// Kernel K3, the same digests from raw little-endian words, is below it.
 //
 // Replaces zk_state_proofs_tpu/ops/keccak_pallas.py::_keccak_kernel, which
 // hashes (8, 128) lane tiles of pre-padded, pre-assembled u32 hi/lo lane
@@ -142,6 +143,62 @@ __global__ void keccak256_rows_kernel(const uint8_t* __restrict__ rows,
   }
 }
 
+// Kernel K3: the same digests from raw little-endian row words. Replaces
+// zk_state_proofs_tpu/ops/keccak_pallas.py::_keccak_kernel_raw. Row i is
+// n_words u32 words (n_words even, rows 8-byte aligned); Keccak lane j of
+// block ib is words 34*ib + 2j (low half) and 34*ib + 2j + 1 (high half),
+// fetched as one aligned 8-byte load. The bytes past the length are masked
+// off, and the 0x01 pad byte and the final 0x80 byte are xored in with
+// masks (keccak_pallas.py:234-261), so no byte is handled one at a time.
+// Absorbs block 0 always and block ib > 0 while len / 136 + 1 > ib, for
+// ib < num_blocks. Bound like K1 by integer ALU work; its loads are 8 bytes
+// wide instead of one.
+__device__ __forceinline__ uint64_t byte_mask(long long nb) {
+  return nb <= 0 ? 0ULL : (nb >= 8 ? ~0ULL : (1ULL << (8 * nb)) - 1);
+}
+
+__device__ __forceinline__ uint64_t byte_at_lane(long long e, uint64_t b) {
+  return (e >= 0 && e < 8) ? b << (8 * e) : 0ULL;
+}
+
+__global__ void keccak256_raw_kernel(const uint64_t* __restrict__ rows,
+                                     int n_words, int num_blocks,
+                                     const int32_t* __restrict__ lens, int n,
+                                     uint8_t* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int n_lanes = n_words / 2;
+  const uint64_t* row = rows + (long long)i * n_lanes;
+  const long long len = lens[i];
+  const int nblk = floor_div((int)len, kRate) + 1;
+  const long long q80 = (long long)nblk * kRate - 1;  // 0x80 position
+
+  uint64_t a[25];
+#pragma unroll
+  for (int w = 0; w < 25; ++w) a[w] = 0;
+
+  for (int ib = 0; ib < num_blocks && (ib == 0 || nblk > ib); ++ib) {
+#pragma unroll
+    for (int j = 0; j < 17; ++j) {
+      const int lane = 17 * ib + j;
+      const long long q = (long long)kRate * ib + 8 * j;  // first byte
+      uint64_t x = lane < n_lanes ? row[lane] : 0ULL;
+      x &= byte_mask(len - q);
+      x ^= byte_at_lane(len - q, 0x01ULL);
+      x ^= byte_at_lane(q80 - q, 0x80ULL);
+      a[j] ^= x;
+    }
+    keccak_f1600(a);
+  }
+
+  uint8_t* o = out + (long long)i * 32;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[8 * w + k] = (uint8_t)(a[w] >> (8 * k));
+  }
+}
+
 }  // namespace
 
 extern "C" int zkp_keccak256_rows(const void* rows, long long row_stride,
@@ -152,6 +209,19 @@ extern "C" int zkp_keccak256_rows(const void* rows, long long row_stride,
     const int blocks = (n + threads - 1) / threads;
     keccak256_rows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)rows, row_stride, width, (const int32_t*)lens, n,
+        (uint8_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zkp_keccak256_raw(const void* words, int n_words,
+                                 int num_blocks, const void* lens, int n,
+                                 void* out, void* stream) {
+  if (n > 0) {
+    const int threads = 64;
+    const int blocks = (n + threads - 1) / threads;
+    keccak256_raw_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)words, n_words, num_blocks, (const int32_t*)lens, n,
         (uint8_t*)out);
   }
   return (int)cudaGetLastError();

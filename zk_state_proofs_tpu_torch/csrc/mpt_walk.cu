@@ -1,7 +1,7 @@
-// Kernel K2: the fused MPT proof walk, modes `hinted` and `exact`.
+// Kernel K2: the fused MPT proof walk, modes `hinted`, `bounded` and `exact`.
 //
 // Replaces zk_state_proofs_tpu/ops/mpt_pallas.py::_walk_kernel (modes
-// 'hinted' and 'exact'). The TPU kernel holds every per-proof scalar as an
+// 'hinted', 'bounded' and 'exact'). The TPU kernel holds every per-proof scalar as an
 // (8, 128) lane tile and, lacking a vector gather, reads node bytes through
 // masked reduces over the node's word axis and binary shift cascades. Here
 // one thread walks one proof and reads its bytes with plain indexed loads
@@ -26,13 +26,26 @@
 //    set. Where the TPU kernel reads a latched proof's windows through
 //    truncated prefixes, this kernel reads them in full: the flag agrees
 //    with the TPU kernel on every proof, the other words wherever it is 0;
+//  - `bounded` decodes serially like `exact`, but reads the node through
+//    the TPU kernel's windows (mpt_pallas.py:540-636): min(N4/4, 147)
+//    words from base = (clip(off) >> 2) * 4, the header through the first
+//    3 words, item i through the first (10 + 35*i + 8) / 4 + 2, the word
+//    index clamped to [0, N4/4 - 1] but not the byte offset (rel & 3). It
+//    latches the overflow flag where the TPU kernel does (a present item
+//    more than 10 + 35*i bytes past base) and also on a present item past
+//    byte N4 - 1 of a node whose list end fits its length (only possible
+//    with node_lens > N), where the TPU kernel's unlatched result can
+//    differ from `exact`;
 //  - the value is copied out at the end, byte-aligned: value[j] =
 //    node[vnode][clip(vstart) + j] for j < vlen (0 past the buffer).
 //
 // What bounds it on the H100: latency of dependent byte loads. Each step
-// of the exact decode is a chain of 18 dependent header fetches, and the
-// loads of one warp fall on 32 different proofs (uncoalesced). The hinted
-// mode breaks the chain: its 17 header fetches are independent. The first
+// of the exact and bounded decodes is a chain of 18 dependent header
+// fetches, and the loads of one warp fall on 32 different proofs
+// (uncoalesced). The hinted mode breaks the chain: its 17 header fetches
+// are independent. The bounded mode's windows, which cut the TPU's masked
+// reduces, buy nothing here (a load costs the same at any offset); it is
+// kept for its latch, which must equal the TPU kernel's. The first
 // version keeps that simple design (no shared-memory staging, no
 // cooperative warps); a later tuning pass can stage the slab in shared
 // memory or give a proof to a group of threads.
@@ -71,7 +84,8 @@ struct WalkArgs {
   long long hints_s0, hints_s1;
   int32_t* out;     // [B, 6]
   uint8_t* values;  // [B, max_value_len]
-  int batch, d, n, kn, max_steps, max_value_len, hinted;
+  int batch, d, n, kn, max_steps, max_value_len;
+  int mode;  // 0 exact, 1 hinted, 2 bounded
 };
 
 namespace {
@@ -185,6 +199,56 @@ __device__ Sel decode_exact(const uint8_t* row, int n, int n4, int start,
   return s;
 }
 
+// `bounded`: byte k of the window of `sh_rows` words that starts at `base`
+__device__ __forceinline__ int win_byte(const uint8_t* row, int n, int base,
+                                        int sh_rows, int k) {
+  return k < 4 * sh_rows ? byte_at(row, n, base + k) : 0;
+}
+
+// `bounded`: header at window offset `rel`, through the first hi_rows words
+__device__ __forceinline__ Head head_win(const uint8_t* row, int n, int n4,
+                                         int base, int sh_rows, int rel,
+                                         int hi_rows) {
+  const int wp = clampi(rel, 0, n4 - 1) >> 2;
+  if (wp >= min(sh_rows, hi_rows)) return head_fields(0, 0, 0, 0);
+  const int k = 4 * wp + (rel & 3);
+  return head_fields(win_byte(row, n, base, sh_rows, k),
+                     win_byte(row, n, base, sh_rows, k + 1),
+                     win_byte(row, n, base, sh_rows, k + 2),
+                     win_byte(row, n, base, sh_rows, k + 3));
+}
+
+// `bounded`: serial decode of the node at byte offset `start` through
+// bounded windows; sets ovf where an item lies past its window
+__device__ Sel decode_bounded(const uint8_t* row, int n, int n4, int start,
+                              int blen, int child, bool& ovf) {
+  Sel s = {};
+  const int sh_rows = min(n4 / 4, (10 + 35 * 16 + 8) / 4 + 3);
+  const int head_pos = clampi(start, 0, n4 - 1);
+  const int base = (head_pos >> 2) * 4;
+  const Head hd = head_win(row, n, n4, base, sh_rows, head_pos - base, 3);
+  const int ps = start + hd.off;
+  const int end = ps + hd.len;
+  int cursor = ps;
+  bool all_ok = true, latch = false, past = false;
+#pragma unroll 1
+  for (int i = 0; i < 17; ++i) {
+    const bool present = cursor < end;
+    if (present && cursor - base > 10 + 35 * i) latch = true;
+    if (present && cursor > n4 - 1) past = true;
+    const Head it = head_win(row, n, n4, base, sh_rows, cursor - base,
+                             (10 + 35 * i + 8) / 4 + 2);
+    const int ips = cursor + it.off;
+    take_item(s, i, present, child, cursor, ips, it.len, it.list);
+    s.count += present;
+    all_ok = all_ok && (!present || it.ok);
+    if (present) cursor = ips + it.len;
+  }
+  ovf = ovf || latch || (past && end <= blen);
+  s.well_formed = hd.list && hd.ok && cursor == end && end <= blen && all_ok;
+  return s;
+}
+
 // `hinted`: every item fetched at its hint, the chain law checked for all
 __device__ Sel decode_hinted(const uint8_t* row, int n, int n4,
                              const uint8_t* hrow, int blen, int child,
@@ -294,7 +358,7 @@ __global__ void mpt_walk_kernel(const WalkArgs a) {
   const uint8_t* dig = a.digests + b * a.dig_s0;
   const uint8_t* root = a.roots + b * a.roots_s0;
   const uint8_t* knib = a.knib + b * a.knib_s0;
-  const uint8_t* hints = a.hinted ? a.hints + b * a.hints_s0 : nullptr;
+  const uint8_t* hints = a.mode == 1 ? a.hints + b * a.hints_s0 : nullptr;
   const int nnum = a.num_nodes[b];
   const int klen = a.key_lens[b];
   const int dlim = min(a.d, max(nnum, 0));
@@ -316,9 +380,11 @@ __global__ void mpt_walk_kernel(const WalkArgs a) {
     const int c_nib = (key_pos >= 0 && key_pos < a.kn) ? (int)knib[key_pos] : 0;
 
     Sel s;
-    if (a.hinted) {
+    if (a.mode == 1) {
       if (off != 0) ovf = true;  // an inline child: node-level hints cannot describe it
       s = decode_hinted(row, n, n4, hints + node_idx * a.hints_s1, blen, c_nib, ovf);
+    } else if (a.mode == 2) {
+      s = decode_bounded(row, n, n4, off, blen, c_nib, ovf);
     } else {
       s = decode_exact(row, n, n4, off, blen, c_nib);
     }

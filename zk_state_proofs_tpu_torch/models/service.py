@@ -15,11 +15,11 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from zk_state_proofs_tpu.witness.pack import PackedProofs, PackingError, pack_proofs
-
 from ..ops import mpt
+from ..oracle import EthTrie, keccak256
 from ..utils.config import BucketConfig
 from ..utils.profiling import Meter
+from ..witness.pack import PackedProofs, PackingError, pack_proofs
 from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS, packed_to_tensors, resolve_device
 from .verifier import VerifyResult
 
@@ -59,14 +59,15 @@ class BatchVerifier:
     pool_segments: optional pinned pool-hash schedule ((row_count, width),
                 ...; PackedProofs.pool_block_segments); a batch takes it
                 only when every pool row's length fits its segment width.
-    device:     "cuda" (kernels K1 and K2) or "cpu" (their plain versions).
+    device:     "cuda" (kernels K1 and K2; the default, raises without a
+                card) or "cpu" (their plain versions).
     mesh:       not supported by this port yet; raises if given.
     """
 
     def __init__(self, bucket: BucketConfig, batch_size: int = 4096,
                  dedup: bool = True, pool_rows: int = 0, mesh=None,
                  depth_segments: tuple | None = None,
-                 pool_segments: tuple | None = None, device="cpu"):
+                 pool_segments: tuple | None = None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("the sharded (mesh) service is not ported yet")
         self.bucket = bucket
@@ -110,8 +111,6 @@ class BatchVerifier:
         builds the kernels on first use; derives pool_rows if unset.
         Returns the seconds taken."""
         if example_entries is None:
-            from zk_state_proofs_tpu.oracle import EthTrie, keccak256
-
             t = EthTrie()
             n = min(64, self.batch_size)
             keys = [keccak256(b"warmup-%d" % i) for i in range(n)]

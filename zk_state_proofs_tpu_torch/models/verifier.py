@@ -1,9 +1,12 @@
-"""Account/merkle verification workloads (port of
-`zk_state_proofs_tpu.models.verifier`, the account-proof part).
+"""Verification workloads (port of `zk_state_proofs_tpu.models.verifier`):
+merkle and account batches, and the two-level account -> storage
+verification (the reference's storage circuit,
+storage-circuit/src/main.rs:6-31).
 
-Every entry point takes an explicit `device`: "cuda" runs kernels K1 and
-K2, "cpu" their plain versions; "cuda" without a card raises. Results come
-back as numpy.
+Every entry point takes a `device`, "cuda" unless the caller names
+another: "cuda" runs kernels K1 and K2 (`hinted` and `bounded`, with the
+`exact` re-run) and raises without a card; "cpu" runs their plain
+versions. Results come back as numpy.
 """
 
 from __future__ import annotations
@@ -11,13 +14,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from zk_state_proofs_tpu.oracle.trie import MissingKeyError, TrieError
-from zk_state_proofs_tpu.witness.pack import PackedProofs, pack_proofs
-
+from .. import native
+from ..oracle.trie import MissingKeyError, TrieError
 from ..ops import mpt
 from ..ops.account import decode_account
-from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS, packed_to_tensors
+from ..ops.keccak_cuda import keccak256_cuda
+from ..ops.rlp import bytes_to_nibbles_device
+from ..witness.pack import PackedProofs, pack_proofs
+from ..witness_bridge import (BATCH_FIELDS, POOL_FIELDS, packed_to_tensors,
+                              resolve_device)
 
 
 @dataclass
@@ -68,14 +75,14 @@ def _verify(packed: PackedProofs, max_value_len: int, dedup: bool, device):
 
 
 def verify_merkle_batch(packed: PackedProofs, max_value_len: int = 128,
-                        dedup: bool = True, device="cpu") -> VerifyResult:
+                        dedup: bool = True, device="cuda") -> VerifyResult:
     """Verify a batch of packed MPT proofs on `device`. dedup=True hashes
     each unique node once (the pooled path, with pack-time hints)."""
     return VerifyResult(*_np(*_verify(packed, max_value_len, dedup, device)))
 
 
 def diagnose_batch(packed: PackedProofs, max_value_len: int = 128,
-                   device="cpu") -> VerifyResult:
+                   device="cuda") -> VerifyResult:
     """verify_merkle_batch plus per-proof INVALID reason codes
     (mpt.REASON_NAMES)."""
     t = packed_to_tensors(packed, device, pool=False)
@@ -86,7 +93,7 @@ def diagnose_batch(packed: PackedProofs, max_value_len: int = 128,
 
 
 def verify_merkle_proof(root: bytes, proof: list, key: bytes,
-                        device="cpu") -> bytes:
+                        device="cuda") -> bytes:
     """Single-proof API: returns the value; raises MissingKeyError for a
     proven-absent key, TrieError for an invalid proof."""
     packed = pack_proofs([(root, proof, key)])
@@ -99,7 +106,7 @@ def verify_merkle_proof(root: bytes, proof: list, key: bytes,
     raise TrieError("invalid merkle proof")
 
 
-def verify_account_batch(packed: PackedProofs, dedup: bool = True, device="cpu"):
+def verify_account_batch(packed: PackedProofs, dedup: bool = True, device="cuda"):
     """Verify + decode the account leaf. Returns (VerifyResult, dict of
     decoded numpy account fields)."""
     status, values, vlens = _verify(packed, 128, dedup, device)
@@ -111,12 +118,175 @@ def verify_account_batch(packed: PackedProofs, dedup: bool = True, device="cpu")
 def batch_commitment(result: VerifyResult) -> bytes:
     """keccak over the (status || len || value) stream of a result: two
     runs agree iff every per-proof outcome and value agree bit-exactly."""
-    from zk_state_proofs_tpu import native
-    from zk_state_proofs_tpu.oracle import keccak256 as _keccak
-
     stream = bytearray()
     for i in range(len(result.status)):
         stream += bytes([int(result.status[i])])
         v = result.value(i)
         stream += len(v).to_bytes(4, "little") + v
-    return native.keccak256(bytes(stream)) if native.available() else _keccak(bytes(stream))
+    return native.keccak256(bytes(stream))  # the oracle's keccak without the library
+
+
+def _slot_key_nibbles(slots):
+    """Level-2 keys on the device: keccak of each raw slot (kernel K1 on
+    the card), nibble-expanded. slots u8 [B, W]; a slot row wider than 32
+    bytes hashes its first 32 (the length is 32 either way), so padding
+    bytes past 32 never change a key. Returns (key nibbles u8 [B, 64], key
+    lengths i32 [B])."""
+    b = slots.shape[0]
+    lens = torch.full((b,), 32, dtype=torch.int32, device=slots.device)
+    knib = bytes_to_nibbles_device(keccak256_cuda(slots, lens))
+    return knib, torch.full((b,), 64, dtype=torch.int32, device=slots.device)
+
+
+def _storage_core(a_batch, s_nodes, s_lens, s_num, slots):
+    """Two-level verification, unpooled 1:1 form (slot j under account
+    row j): both levels through `verify_proofs`. a_batch: the account
+    BATCH_FIELDS tensors. Returns (a_status, account fields, s_status,
+    s_values, s_value_lens)."""
+    a_status, a_values, a_vlens = mpt.verify_proofs(*a_batch, max_value_len=128)
+    acct = decode_account(a_values, a_vlens)
+    s_knib, s_klen = _slot_key_nibbles(slots)
+    s_status, s_values, s_vlens = mpt.verify_proofs(
+        s_nodes, s_lens, s_num, acct["storage_root"], s_knib, s_klen,
+        max_value_len=64)
+    # an invalid/absent account or an undecodable leaf invalidates its slots
+    account_ok = (a_status == mpt.FOUND) & acct["ok"]
+    s_status = torch.where(account_ok, s_status, mpt.INVALID)
+    return a_status, acct, s_status, s_values, s_vlens
+
+
+def _storage_core_grouped(a_batch, a_pool, a_hints, s_nodes, s_lens, s_num,
+                          s_pool, slots, slot_accounts):
+    """Grouped + pooled two-level verification: A unique accounts, B slots
+    and slot_accounts i32 [B], the account row of each slot. Each account
+    proof is verified once (pooled, `hinted` with the pack-time hints);
+    each slot's trusted root is its account's decoded storage_root (a row
+    gather); the slot level walks pooled without hints (`bounded`):
+    storage tries hold inline leaves, which would defer the hinted walk to
+    its exact re-run on every batch."""
+    a_status, a_values, a_vlens = mpt.verify_proofs_pooled(
+        *a_batch, *a_pool, a_hints, max_value_len=128)
+    acct = decode_account(a_values, a_vlens)
+    s_knib, s_klen = _slot_key_nibbles(slots)
+    sa = slot_accounts.to(torch.int64)
+    s_roots = torch.index_select(acct["storage_root"], 0, sa)
+    s_status, s_values, s_vlens = mpt.verify_proofs_pooled(
+        s_nodes, s_lens, s_num, s_roots, s_knib, s_klen, *s_pool,
+        max_value_len=64, hinted=False)
+    account_ok = (a_status == mpt.FOUND) & acct["ok"]
+    s_status = torch.where(torch.index_select(account_ok, 0, sa), s_status,
+                           mpt.INVALID)
+    return a_status, acct, s_status, s_values, s_vlens
+
+
+@dataclass
+class StorageVerifyResult:
+    """1:1 two-level outcome: account row j owns slot j (numpy)."""
+
+    account_status: np.ndarray   # i32 [B]
+    storage_root: np.ndarray     # u8  [B, 32]
+    nonce: np.ndarray            # u8  [B, 8] big-endian
+    balance: np.ndarray          # u8  [B, 32] big-endian
+    code_hash: np.ndarray        # u8  [B, 32]
+    slot_status: np.ndarray      # i32 [B]
+    slot_values: np.ndarray      # u8  [B, V]
+    slot_value_lens: np.ndarray  # i32 [B]
+
+    def slot_value(self, i: int) -> bytes:
+        return bytes(self.slot_values[i][: self.slot_value_lens[i]])
+
+
+@dataclass
+class GroupedStorageVerifyResult:
+    """N-slots-per-account outcome: account arrays are [A] (one row per
+    unique account), slot arrays [B], and slot_accounts[j] names the
+    account row that owns slot j (numpy)."""
+
+    account_status: np.ndarray   # i32 [A]
+    storage_root: np.ndarray     # u8  [A, 32]
+    nonce: np.ndarray            # u8  [A, 8] big-endian
+    balance: np.ndarray          # u8  [A, 32] big-endian
+    code_hash: np.ndarray        # u8  [A, 32]
+    slot_accounts: np.ndarray    # i32 [B]
+    slot_status: np.ndarray      # i32 [B]
+    slot_values: np.ndarray      # u8  [B, V]
+    slot_value_lens: np.ndarray  # i32 [B]
+
+    def slot_value(self, i: int) -> bytes:
+        return bytes(self.slot_values[i][: self.slot_value_lens[i]])
+
+
+def _checked_slots(slots, batch: int):
+    slots = np.asarray(slots, dtype=np.uint8)
+    if slots.shape != (batch, 32):
+        raise ValueError(f"slots must be [B, 32], got {slots.shape}")
+    return slots
+
+
+def _grouped(a: PackedProofs, s: PackedProofs, slots, sa, device):
+    """_storage_core_grouped on packed batches; numpy results."""
+    dev = resolve_device(device)
+    at = packed_to_tensors(a, dev)
+    st = packed_to_tensors(s, dev)
+    out = _storage_core_grouped(
+        [at[k] for k in BATCH_FIELDS], [at[k] for k in POOL_FIELDS],
+        at["pool_hints"], st["nodes"], st["node_lens"], st["num_nodes"],
+        [st[k] for k in POOL_FIELDS], torch.from_numpy(slots).to(dev),
+        torch.from_numpy(sa).to(dev))
+    return _storage_numpy(*out)
+
+
+def _storage_numpy(a_status, acct, s_status, s_values, s_vlens):
+    return dict(
+        account_status=a_status.cpu().numpy(),
+        storage_root=acct["storage_root"].cpu().numpy(),
+        nonce=acct["nonce"].cpu().numpy(),
+        balance=acct["balance"].cpu().numpy(),
+        code_hash=acct["code_hash"].cpu().numpy(),
+        slot_status=s_status.cpu().numpy(),
+        slot_values=s_values.cpu().numpy(),
+        slot_value_lens=s_vlens.cpu().numpy())
+
+
+def verify_storage_grouped(account_packed: PackedProofs,
+                           storage_packed: PackedProofs, slots, slot_accounts,
+                           device="cuda") -> GroupedStorageVerifyResult:
+    """N-slots-per-account two-level verification (the reference's
+    StorageProofInput shape, crypto-ops/src/types.rs:12-19).
+
+    account_packed: A unique account proofs (key = keccak(address))
+    storage_packed: B storage proofs (key_nibbles ignored: derived from
+                    `slots` on the device)
+    slots:          u8 [B, 32] raw slot keys (hashed on the device)
+    slot_accounts:  i32 [B] the account row of each slot"""
+    a, s = account_packed, storage_packed
+    slots = _checked_slots(slots, s.batch)
+    sa = np.asarray(slot_accounts, dtype=np.int32)
+    if sa.shape != (s.batch,):
+        raise ValueError(f"slot_accounts must be [B], got {sa.shape}")
+    if sa.size and ((sa < 0).any() or (sa >= a.batch).any()):
+        raise ValueError(f"slot_accounts out of range [0, {a.batch})")
+    return GroupedStorageVerifyResult(slot_accounts=sa,
+                                      **_grouped(a, s, slots, sa, device))
+
+
+def verify_storage_batch(account_packed: PackedProofs,
+                         storage_packed: PackedProofs, slots,
+                         dedup: bool = True, device="cuda") -> StorageVerifyResult:
+    """Two-level verification, 1:1 (account row j owns slot j).
+
+    slots: u8 [B, 32] raw slot keys (hashed on the device). dedup=True
+    runs the grouped, pooled core with the identity slot -> account map;
+    dedup=False the unpooled core. Results are identical."""
+    a, s = account_packed, storage_packed
+    slots = _checked_slots(slots, s.batch)
+    if dedup:
+        sa = np.arange(s.batch, dtype=np.int32)
+        return StorageVerifyResult(**_grouped(a, s, slots, sa, device))
+    dev = resolve_device(device)
+    at = packed_to_tensors(a, dev, pool=False)
+    st = packed_to_tensors(s, dev, pool=False)
+    out = _storage_core([at[k] for k in BATCH_FIELDS], st["nodes"],
+                        st["node_lens"], st["num_nodes"],
+                        torch.from_numpy(slots).to(dev))
+    return StorageVerifyResult(**_storage_numpy(*out))

@@ -1,0 +1,194 @@
+"""ctypes bindings for the native host runtime (`native/zkp_host.cpp`).
+
+The port's own counterpart of `zk_state_proofs_tpu.native`. The C++ source
+sits at the repository root; it is compiled with g++ at first use, on the
+machine that runs it, into the gitignored `_kernels_build/` beside the
+package (keyed on a hash of the source and flags). The build is portable
+(no `-march=native`), so a library built on one host runs on another.
+Without g++ or the source every caller takes its pure-Python fallback:
+same results, slower host packing and hashing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+_PKG = Path(__file__).resolve().parent
+_SRC = _PKG.parent / "native" / "zkp_host.cpp"
+BUILD_DIR = _PKG / "_kernels_build"
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+
+_lib = None
+_load_failed = False
+
+
+def _build() -> Path | None:
+    """Path of the built library (building it if needed), or None."""
+    if not _SRC.exists():
+        return None
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(_SRC.read_bytes())
+    out_dir = BUILD_DIR / f"host-{h.hexdigest()[:16]}"
+    so = out_dir / "libzkp_host.so"
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libzkp_host.{os.getpid()}.tmp.so"
+    try:
+        subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
+                       check=True, capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    os.replace(tmp, so)
+    return so
+
+
+def get_lib():
+    """The loaded native library, or None if it cannot be built or loaded."""
+    global _lib, _load_failed
+    if _lib is not None or _load_failed:
+        return _lib
+    so = _build()
+    try:
+        lib = ctypes.CDLL(str(so)) if so is not None else None
+    except OSError:
+        lib = None
+    if lib is None:
+        _load_failed = True
+        return None
+    lib.zkp_keccak256.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p]
+    lib.zkp_pack_proofs.restype = ctypes.c_int
+    lib.zkp_build_node_pool.restype = ctypes.c_int
+    lib.zkp_build_node_pool.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ]
+    lib.zkp_item_offsets.restype = None
+    lib.zkp_item_offsets.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+def keccak256(data: bytes) -> bytes:
+    """Native legacy Keccak-256; falls back to the Python oracle."""
+    lib = get_lib()
+    if lib is None:
+        from .oracle.keccak import keccak256 as py_keccak
+
+        return py_keccak(data)
+    out = ctypes.create_string_buffer(32)
+    lib.zkp_keccak256(data, len(data), out)
+    return out.raw
+
+
+def build_node_pool_native(nodes, node_lens, num_nodes,
+                           pad_multiple: int = 128, min_rows: int = 0):
+    """Native unique-node pool construction (zkp_build_node_pool),
+    byte-identical to witness.pack.build_node_pool. Returns (pool_nodes,
+    pool_lens, pool_idx), or None without the native library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    nodes = np.ascontiguousarray(nodes, dtype=np.uint8)
+    node_lens = np.ascontiguousarray(node_lens, dtype=np.int32)
+    num_nodes = np.ascontiguousarray(num_nodes, dtype=np.int32)
+    b, d, n = nodes.shape
+    cap = int(num_nodes.sum()) + 1
+    cap = max(-(-cap // pad_multiple) * pad_multiple, min_rows)
+    pool_nodes = np.zeros((cap, n), dtype=np.uint8)
+    pool_lens = np.zeros(cap, dtype=np.int32)
+    pool_idx = np.zeros((b, d), dtype=np.int32)
+    used = lib.zkp_build_node_pool(
+        nodes.ctypes.data_as(ctypes.c_void_p),
+        node_lens.ctypes.data_as(ctypes.c_void_p),
+        num_nodes.ctypes.data_as(ctypes.c_void_p),
+        b, d, n,
+        pool_nodes.ctypes.data_as(ctypes.c_void_p),
+        pool_lens.ctypes.data_as(ctypes.c_void_p),
+        pool_idx.ctypes.data_as(ctypes.c_void_p),
+        cap,
+    )
+    if used < 0:
+        from .witness.pack import PackingError
+
+        raise PackingError("node pool exceeded its capacity bound")
+    u = max(-(-used // pad_multiple) * pad_multiple, min_rows)
+    return pool_nodes[:u], pool_lens[:u], pool_idx
+
+
+def item_offsets_native(rows):
+    """Native per-node RLP offset-hint scan (zkp_item_offsets): rows u8
+    [N, L] -> u8 [N, 36], or None without the native library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    n, row_len = rows.shape
+    out = np.empty((n, 36), dtype=np.uint8)
+    lib.zkp_item_offsets(rows.ctypes.data_as(ctypes.c_void_p), n, row_len,
+                         out.ctypes.data_as(ctypes.c_void_p))
+    return out
+
+
+def pack_proofs_native(entries, max_nodes: int, node_len: int, key_nibbles: int):
+    """Native packing path for witness.pack_proofs. Returns the packed
+    numpy arrays, or None without the native library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    b = len(entries)
+    node_blob_parts, counts, roots, key_parts = [], [], [], []
+    for root, proof, key in entries:
+        counts.append(len(proof))
+        node_blob_parts.extend(proof)
+        roots.append(root)
+        key_parts.append(key)
+    node_blob = b"".join(node_blob_parts)
+    node_offsets = np.zeros(len(node_blob_parts) + 1, dtype=np.int64)
+    np.cumsum([len(n) for n in node_blob_parts], out=node_offsets[1:])
+    key_blob = b"".join(key_parts)
+    key_offsets = np.zeros(b + 1, dtype=np.int64)
+    np.cumsum([len(k) for k in key_parts], out=key_offsets[1:])
+    counts_arr = np.asarray(counts, dtype=np.int32)
+    roots_blob = b"".join(roots)
+
+    nodes = np.empty((b, max_nodes, node_len), dtype=np.uint8)
+    node_lens = np.empty((b, max_nodes), dtype=np.int32)
+    num_nodes = np.empty(b, dtype=np.int32)
+    out_roots = np.empty((b, 32), dtype=np.uint8)
+    knib = np.empty((b, key_nibbles), dtype=np.uint8)
+    key_lens = np.empty(b, dtype=np.int32)
+
+    rc = lib.zkp_pack_proofs(
+        ctypes.c_char_p(node_blob),
+        node_offsets.ctypes.data_as(ctypes.c_void_p),
+        counts_arr.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_char_p(roots_blob),
+        ctypes.c_char_p(key_blob),
+        key_offsets.ctypes.data_as(ctypes.c_void_p),
+        b, max_nodes, node_len, key_nibbles,
+        nodes.ctypes.data_as(ctypes.c_void_p),
+        node_lens.ctypes.data_as(ctypes.c_void_p),
+        num_nodes.ctypes.data_as(ctypes.c_void_p),
+        out_roots.ctypes.data_as(ctypes.c_void_p),
+        knib.ctypes.data_as(ctypes.c_void_p),
+        key_lens.ctypes.data_as(ctypes.c_void_p),
+    )
+    if rc != 0:
+        from .witness.pack import PackingError
+
+        raise PackingError(f"proof {rc - 1} exceeds bucket (max_nodes={max_nodes}, "
+                           f"node_len={node_len}, key_nibbles={key_nibbles})")
+    return nodes, node_lens, num_nodes, out_roots, knib, key_lens

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-The sources are compiled with nvcc for sm_90a into one shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so the build
-takes seconds). The library lands in a directory beside the package, keyed
+The sources are compiled with nvcc for sm_90a, one nvcc process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds). The library lands in a directory beside the package, keyed
 on a hash of the sources and flags, so an edited kernel rebuilds and an
 unchanged one loads at once. Nothing is built or loaded at import time.
 """
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class KernelLibrary:
@@ -65,6 +66,10 @@ def _declare(lib) -> None:
     lib.zkp_keccak256_rows.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.zkp_keccak256_raw.restype = ctypes.c_int
+    lib.zkp_keccak256_raw.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.zkp_mpt_walk.restype = ctypes.c_int
     lib.zkp_mpt_walk.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.zkp_walk_args_size.restype = ctypes.c_int
@@ -82,15 +87,34 @@ def load_library() -> KernelLibrary:
     t0 = time.time()
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libzkp_kernels.{os.getpid()}.tmp.so"
+        tag = os.getpid()
         srcs, _ = _sources()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
-            capture_output=True, text=True, timeout=600)
-        log = proc.stdout + proc.stderr
+        objs = [out_dir / f"{p.stem}.{tag}.o" for p in srcs]
+        # one nvcc per source, all at once; then one link
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(srcs, objs)]
+        try:
+            for p, proc in zip(srcs, procs):
+                out, _ = proc.communicate(timeout=600)
+                log += out
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {p.name} ({proc.returncode}):\n{out}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp = out_dir / f"libzkp_kernels.{tag}.tmp.so"
+        proc = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, timeout=600)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
         os.replace(tmp, so)
+        for o in objs:
+            o.unlink()
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     _loaded = KernelLibrary(lib, so, time.time() - t0, log)

@@ -6,8 +6,9 @@ in int64 tensors and stay non-negative: PyTorch has no shifts for uint32 or
 uint64, and `>>` on a negative int64 is arithmetic, so every left shift is
 masked back to 32 bits. Ethereum's legacy padding (0x01 ... 0x80) is used.
 
-This module is what a CPU tensor runs; `keccak_cuda.keccak256_cuda` holds
-the kernel and dispatches here for CPU tensors.
+This module is what a CPU tensor runs; `keccak_cuda.keccak256_cuda` (K1)
+and `keccak_cuda.keccak256_cuda_raw` (K3) hold the kernels and dispatch
+here for CPU tensors (`keccak256` and `keccak256_raw`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zk_state_proofs_tpu.oracle.keccak import RATE, ROTATION_OFFSETS, ROUND_CONSTANTS
+from ..oracle.keccak import RATE, ROTATION_OFFSETS, ROUND_CONSTANTS
 
 LANES = 25
 WORDS_PER_BLOCK = RATE // 8  # 17 u64 lanes absorbed per rate block
@@ -145,3 +146,55 @@ def keccak256(data, lengths=None):
     out_hi = torch.movedim(hi[:4], 0, -1)  # [..., 4]
     out_lo = torch.movedim(lo[:4], 0, -1)
     return lanes_to_bytes(out_hi, out_lo)
+
+
+def _raw_lane_half(words, nlen, q80, widx, q):
+    """Lane halves from row words at word indices `widx` [17] (bytes
+    q..q+3, q [17]): the raw bytes masked to the message length, the 0x01
+    pad byte at `length` and the 0x80 byte at the last byte of the final
+    rate block xored in (keccak_pallas.py:234-261). Words past the row
+    read 0. words int64 [B, NW], nlen/q80 int64 [B, 1] -> int64 [B, 17]."""
+    nw = words.shape[1]
+    raw = torch.where(widx < nw, words[:, widx.clamp(max=nw - 1)], 0)
+    nb = nlen - q  # bytes of this word inside the message
+    mask = (1 << (8 * nb.clamp(0, 4))) - 1
+    x = raw & mask
+    x = x ^ torch.where((nb >= 0) & (nb <= 3), 1 << (8 * nb.clamp(0, 3)), 0)
+    e = q80 - q
+    return x ^ torch.where((e >= 0) & (e <= 3), 0x80 << (8 * e.clamp(0, 3)), 0)
+
+
+def keccak256_raw(data, lengths=None):
+    """The plain version of kernel K3 (`keccak_cuda.keccak256_cuda_raw`):
+    Keccak-256 from little-endian u32 row words, with the pad10*1 bytes and
+    the lane assembly done by masks on the words, as the TPU kernel
+    `_keccak_kernel_raw` does. data u8 [B, L], lengths int [B] (default L)
+    -> u8 [B, 32].
+
+    Absorbs L // RATE + 1 blocks at most: block 0 always, block ib > 0
+    while length // RATE + 1 > ib. Keccak lane j of block ib is words
+    34*ib + 2j (low half) and 34*ib + 2j + 1 (high half)."""
+    b, width = data.shape
+    if lengths is None:
+        lengths = torch.full((b,), width, dtype=torch.int32, device=data.device)
+    num_blocks = width // RATE + 1
+    l8 = -(-width // 8) * 8
+    by = torch.nn.functional.pad(data, (0, l8 - width)).to(torch.int64)
+    by = by.reshape(b, l8 // 4, 4)
+    words = by[..., 0] | (by[..., 1] << 8) | (by[..., 2] << 16) | (by[..., 3] << 24)
+    nlen = lengths.to(torch.int64)[:, None]
+    nblk = torch.div(nlen, RATE, rounding_mode="floor") + 1
+    q80 = nblk * RATE - 1  # byte position of the 0x80 domain bit
+    j = torch.arange(WORDS_PER_BLOCK, device=data.device)
+    hi = torch.zeros((LANES, b), dtype=torch.int64, device=data.device)
+    lo = torch.zeros_like(hi)
+    pad = (0, 0, 0, LANES - WORDS_PER_BLOCK)
+    for ib in range(num_blocks):
+        widx, q = 34 * ib + 2 * j, RATE * ib + 8 * j
+        bl = _raw_lane_half(words, nlen, q80, widx, q)
+        bh = _raw_lane_half(words, nlen, q80, widx + 1, q + 4)
+        nh, nl = keccak_f1600(hi ^ torch.nn.functional.pad(bh.T, pad),
+                              lo ^ torch.nn.functional.pad(bl.T, pad))
+        active = (nblk[:, 0] > ib)[None] | (ib == 0)
+        hi, lo = torch.where(active, nh, hi), torch.where(active, nl, lo)
+    return lanes_to_bytes(hi[:4].T, lo[:4].T)

@@ -1,11 +1,16 @@
-"""Kernel K1: batched Keccak-256 on the card (csrc/keccak.cu).
+"""Kernels K1 and K3: batched Keccak-256 on the card (csrc/keccak.cu).
 
-Replaces `zk_state_proofs_tpu.ops.keccak_pallas._keccak_kernel` (entered
+K1 replaces `zk_state_proofs_tpu.ops.keccak_pallas._keccak_kernel` (entered
 there through `keccak256_tpu`). One thread hashes one message from its raw
 row bytes and length, padding inside the kernel; see the source for what
-bounds it. `keccak256_cuda` dispatches on the tensor's device: a CPU tensor
-takes the plain version (`ops.keccak.keccak256`), a CUDA tensor launches
-the kernel or raises.
+bounds it. K3 replaces `_keccak_kernel_raw` (entered through
+`keccak256_tpu_raw`): the same digests, with every lane read as one
+little-endian 8-byte word and the padding applied by masks. As in the JAX
+package, K3 is not on the verify path.
+
+Each wrapper dispatches on the tensor's device: a CPU tensor takes the plain
+version (`ops.keccak.keccak256`, `ops.keccak.keccak256_raw`), a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import torch
 from . import keccak
 from ._build import check_launch, load_library
 
-LAUNCHES = {"keccak256": 0}
+LAUNCHES = {"keccak256": 0, "keccak256_raw": 0}
 
 
 def keccak256_cuda(rows, lens):
@@ -43,4 +48,39 @@ def keccak256_cuda(rows, lens):
                                 lens.data_ptr(), u, out.data_ptr(), stream)
     check_launch(rc, "keccak256 kernel")
     LAUNCHES["keccak256"] += 1
+    return out
+
+
+def keccak256_cuda_raw(data, lengths):
+    """data u8 [B, L], lengths i32 [B] -> digests u8 [B, 32] of each row's
+    first lengths[i] bytes, as `keccak256_cuda` gives them. The rows are
+    padded to a multiple of 8 bytes (as keccak256_tpu_raw pads them) so
+    that every lane is one aligned word pair."""
+    if data.device.type == "cpu":
+        return keccak.keccak256_raw(data, lengths)
+    if data.device.type != "cuda":
+        raise ValueError(f"keccak256_cuda_raw: unsupported device {data.device}")
+    if data.dtype != torch.uint8 or data.ndim != 2:
+        raise ValueError(f"data must be u8 [B, L], got {data.dtype} {tuple(data.shape)}")
+    b, width = data.shape
+    if lengths.dtype != torch.int32 or lengths.shape != (b,):
+        raise ValueError(f"lengths must be i32 [{b}], got {lengths.dtype} {tuple(lengths.shape)}")
+    if lengths.device != data.device or not lengths.is_contiguous():
+        raise ValueError("lengths must be contiguous and on the data's device")
+    out = torch.empty((b, 32), dtype=torch.uint8, device=data.device)
+    if b == 0:
+        return out
+    l8 = -(-width // 8) * 8
+    if l8 != width or not data.is_contiguous() or data.data_ptr() % 8:
+        rows = torch.zeros((b, max(l8, 8)), dtype=torch.uint8, device=data.device)
+        rows[:, :width] = data
+    else:
+        rows = data
+    lib = load_library().lib
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    rc = lib.zkp_keccak256_raw(rows.data_ptr(), rows.shape[1] // 4,
+                               width // keccak.RATE + 1, lengths.data_ptr(), b,
+                               out.data_ptr(), stream)
+    check_launch(rc, "keccak256_raw kernel")
+    LAUNCHES["keccak256_raw"] += 1
     return out

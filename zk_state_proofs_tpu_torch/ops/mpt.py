@@ -7,8 +7,9 @@ Verification is phase-split as in the JAX package:
      (a row gather — the JAX package's one-hot bf16 matmul was a TPU
      workaround; bytes never pass through a float matmul here, where TF32
      would corrupt them);
-  3. walk every proof (kernel K2, `mpt_cuda`, `hinted` mode with an `exact`
-     re-run when any overflow flag latches);
+  3. walk every proof (kernel K2, `mpt_cuda`): `hinted` mode with pack-time
+     hints, `bounded` mode without them, and an `exact` re-run of the batch
+     when any overflow flag latches;
   4. extract the values (inside K2 on the card).
 
 This module holds the plain PyTorch walk — `walk_kernel_plain`, the plain
@@ -21,12 +22,11 @@ from __future__ import annotations
 
 import torch
 
-from zk_state_proofs_tpu.oracle.trie import EMPTY_ROOT
-
+from ..oracle.trie import EMPTY_ROOT
 from . import mpt_cuda
 from .keccak_cuda import keccak256_cuda
-from .rlp import (bytes_to_nibbles_device, decode_node_hinted,
-                  decode_node_select, fetch_bytes)
+from .rlp import (bytes_to_nibbles_device, decode_node_bounded,
+                  decode_node_hinted, decode_node_select, fetch_bytes)
 
 # status codes (per proof)
 RUNNING = 0
@@ -50,7 +50,7 @@ REASON_NAMES = {
     R_TRUNCATED: "truncated",
 }
 
-WALK_MODES = ("hinted", "exact")
+WALK_MODES = ("hinted", "bounded", "exact")
 
 
 def _step_pair(buf, key_nibbles, key_lens, key_pos, p0s, p0l, p0list):
@@ -201,11 +201,18 @@ def walk_kernel_plain(mode: str, nodes, node_lens, num_nodes, digests, roots,
     `zk_state_proofs_tpu.ops.mpt.walk_batch`. 'hinted' decodes at the hints
     (rlp.decode_node_hinted) and latches the overflow flag on a live proof
     whenever its hints are not proven or it steps into an inline child
-    (off != 0). Proofs whose flag stays 0 get the exact results; the
-    caller re-runs the rest in 'exact'. The TPU kernel reads some windows
-    of latched proofs through truncated prefixes; here every fetch is full
-    width, so the flag agrees with the TPU kernel on every proof and the
-    other words agree wherever the flag is 0."""
+    (off != 0). 'bounded' decodes serially through bounded windows
+    (rlp.decode_node_bounded) and latches the flag on a live proof whose
+    item lies past its window. Proofs whose flag stays 0 get the exact
+    results; the caller re-runs the rest in 'exact'.
+
+    In hinted mode the TPU kernel reads some windows of latched proofs
+    through truncated prefixes; here every fetch is full width, so the
+    flag agrees with the TPU kernel on every proof and the other words
+    agree wherever the flag is 0. Bounded mode reads the TPU kernel's
+    windows; its flag and words agree with the TPU kernel's except where
+    a node's length exceeds its buffer (rlp.decode_node_bounded), where
+    the port latches and the TPU kernel does not."""
     if mode not in WALK_MODES:
         raise ValueError(f"walk mode {mode!r} not in {WALK_MODES}")
     if mode == "hinted" and hints is None:
@@ -233,6 +240,9 @@ def walk_kernel_plain(mode: str, nodes, node_lens, num_nodes, digests, roots,
             h = (hrow[:, 0::2] << 8) | hrow[:, 1::2]
             items = decode_node_hinted(buf, h, blen, c_nib)
             ovf = ovf | (live & ((off != 0) | items["hint_ovf"]))
+        elif mode == "bounded":
+            items = decode_node_bounded(buf, off, blen, c_nib)
+            ovf = ovf | (live & items["bound_ovf"])
         else:
             items = decode_node_select(buf, off, blen, c_nib)
         pair = _step_pair(buf, key_nibbles, key_lens, key_pos, items["i0_pay"],
@@ -329,10 +339,10 @@ def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
     value_lens i32 [B]).
 
     pool_hints (u8 [U, 36], PackedProofs.pool_hints()) with hinted=True
-    walks in K2's `hinted` mode, re-run in `exact` when any proof latches
-    the overflow flag; without them (the device hint pass
+    walks in K2's `hinted` mode; without them (the device hint pass
     `ops.rlp.item_offsets` is not ported) or with hinted=False the walk is
-    `exact`. Results are identical in every case.
+    `bounded`, as in the JAX package. Either is re-run in `exact` when any
+    proof latches the overflow flag. Results are identical in every case.
 
     depth_segments: ((count, d), ...) covering the batch in order
     (PackedProofs.depth_segments()) — one walk per contiguous segment over
@@ -357,12 +367,9 @@ def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
 def verify_proofs(nodes, node_lens, num_nodes, roots, key_nibbles, key_lens,
                   max_value_len: int = 128, max_steps: int | None = None):
     """Batched verification without a pool: every node row is hashed.
-    Returns (status, values, value_lens).
-
-    The JAX package walks this in the TPU kernel's `bounded` mode, which
-    falls back to `exact` whenever it overflows; bounded results are exact
-    results by that contract, so the port walks in `exact` (K2 on the
-    card)."""
+    Returns (status, values, value_lens). Walks in K2's `bounded` mode,
+    re-run in `exact` when any proof latches the overflow flag, as the
+    JAX package does on the TPU."""
     digests = hash_nodes(nodes, node_lens)
     return mpt_cuda.walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots,
                                     key_nibbles, key_lens, max_value_len, max_steps)
@@ -372,8 +379,8 @@ def verify_proofs_diagnose(nodes, node_lens, num_nodes, roots, key_nibbles,
                            key_lens, max_value_len: int = 128,
                            max_steps: int | None = None):
     """`verify_proofs` plus the per-proof INVALID reason (REASON_NAMES).
-    Walks in `exact` mode, as verify_proofs does. Returns (status, values,
-    value_lens, reasons)."""
+    Walks in `bounded` mode with the `exact` re-run, as verify_proofs
+    does. Returns (status, values, value_lens, reasons)."""
     digests = hash_nodes(nodes, node_lens)
     return mpt_cuda.walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots,
                                     key_nibbles, key_lens, max_value_len, max_steps,

@@ -1,17 +1,18 @@
 """Kernel K2: the fused MPT walk on the card (csrc/mpt_walk.cu).
 
 Replaces `zk_state_proofs_tpu.ops.mpt_pallas._walk_kernel` in its modes
-`hinted` (the production mode of the pooled path) and `exact` (the
-fallback). The TPU kernel's other modes are not ported: `bounded` serves
-unhinted walks there and falls back to `exact` on overflow, so the port
-walks unhinted batches in `exact` directly; `hinted4`, `hinted1`, `ordered`
-and `pairskip` are TPU layout variants with identical results.
+`hinted` (walks with pack-time hints: the account level), `bounded` (walks
+without hints: `verify_proofs`, `verify_proofs_diagnose` and the storage
+slot level) and `exact` (the fallback of both). The TPU kernel's modes
+`hinted4`, `hinted1`, `ordered` and `pairskip` are layout variants of
+`hinted` with identical results, not ported yet.
 
 `walk_lanes` is the kernel's wrapper (a CPU tensor takes the plain version,
 `ops.mpt.walk_kernel_plain`); `walk_batch_cuda` and
 `walk_batch_cuda_segmented` are the ports of `walk_batch_pallas` and
 `walk_batch_pallas_segmented`. When any proof latches the overflow flag in
-`hinted` mode, the whole batch is walked again in `exact`, as on the TPU.
+`hinted` or `bounded` mode, the whole batch is walked again in `exact`, as
+on the TPU.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch
 from . import mpt
 from ._build import check_launch, load_library
 
-LAUNCHES = {"hinted": 0, "exact": 0}
+LAUNCHES = {"hinted": 0, "bounded": 0, "exact": 0}
+_MODE_CODE = {"exact": 0, "hinted": 1, "bounded": 2}  # WalkArgs.mode
 
 
 class WalkArgs(ctypes.Structure):
@@ -45,7 +47,7 @@ class WalkArgs(ctypes.Structure):
         ("out", ctypes.c_void_p), ("values", ctypes.c_void_p),
         ("batch", ctypes.c_int), ("d", ctypes.c_int), ("n", ctypes.c_int),
         ("kn", ctypes.c_int), ("max_steps", ctypes.c_int),
-        ("max_value_len", ctypes.c_int), ("hinted", ctypes.c_int),
+        ("max_value_len", ctypes.c_int), ("mode", ctypes.c_int),
     ]
 
 
@@ -66,8 +68,8 @@ def _check(name, t, dtype, shape, device):
 def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
                key_nibbles, key_lens, max_value_len: int, max_steps: int,
                hints=None):
-    """One K2 launch: every proof walked in `mode` ('hinted' or 'exact'),
-    without a fallback. Inputs and outputs as
+    """One K2 launch: every proof walked in `mode` ('hinted', 'bounded' or
+    'exact'), without a fallback. Inputs and outputs as
     `ops.mpt.walk_kernel_plain`: (out i32 [B, 6], values u8 [B, mvl])."""
     if nodes.device.type == "cpu":
         return mpt.walk_kernel_plain(mode, nodes, node_lens, num_nodes, digests,
@@ -111,7 +113,7 @@ def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
         hints.data_ptr() if hinted else None,
         hints.stride(0) if hinted else 0, hints.stride(1) if hinted else 0,
         out.data_ptr(), values.data_ptr(),
-        b, d, n, kn, max_steps, max_value_len, int(hinted))
+        b, d, n, kn, max_steps, max_value_len, _MODE_CODE[mode])
     lib = load_library().lib
     if lib.zkp_walk_args_size() != ctypes.sizeof(WalkArgs):
         raise RuntimeError("WalkArgs layout differs between Python and CUDA")
@@ -129,21 +131,21 @@ def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
     """The walk of the verify entry points (port of `walk_batch_pallas`).
     Returns (status i32 [B], values u8 [B, max_value_len], value_lens i32
     [B]); with_reasons appends the INVALID reason, with_overflow the
-    per-proof overflow flag of the first (hinted) walk.
+    per-proof overflow flag of the first (hinted or bounded) walk.
 
-    hints (u8 [B, D, 36]) select `hinted` mode; if any proof latches the
-    overflow flag (wrong hints, an inline-child step, a bound exceeded),
-    the whole batch is walked again in `exact`, so results equal
-    `ops.mpt.walk_batch` on every input. Deciding that reads one flag back
-    to the host. Without hints the walk is `exact`."""
+    hints (u8 [B, D, 36]) select `hinted` mode, no hints `bounded` mode.
+    If any proof latches the overflow flag (wrong hints, an inline-child
+    step in hinted mode, an item past its bound), the whole batch is
+    walked again in `exact`, so results equal `ops.mpt.walk_batch` on
+    every input. Deciding that reads one flag back to the host."""
     if max_steps is None:
         max_steps = nodes.shape[1] + 6
-    mode = "exact" if hints is None else "hinted"
+    mode = "bounded" if hints is None else "hinted"
     args = (nodes, node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
             max_value_len, max_steps)
     out, values = walk_lanes(mode, *args, hints=hints)
     fast_ovf = out[:, 4]
-    if mode == "hinted" and bool((fast_ovf != 0).any()):
+    if bool((fast_ovf != 0).any()):
         out, values = walk_lanes("exact", *args)
     status = out[:, 0]
     result = (status, values, torch.where(status == mpt.FOUND, out[:, 3], 0))

@@ -111,6 +111,100 @@ def decode_node_select(buf, start, buf_len, child_idx):
     return sel
 
 
+def _item_bound(i: int) -> int:
+    """Item i of an honest branch or pair node starts within 10 + 35*i
+    bytes of the node's first byte (header <= 4 B, branch items <= 33 B,
+    pair path <= 35 B with its header)."""
+    return 10 + 35 * i
+
+
+_SH_ROWS = (_item_bound(16) + 8) // 4 + 3  # 147 words: covers every unlatched fetch
+
+
+def _fetch_window(buf, base, rel, hi_rows: int, sh_rows: int):
+    """The `bounded` mode's 4-byte fetch (mpt_pallas.py:556-580): bytes
+    rel..rel+3 of the node seen through a window of `sh_rows` words that
+    starts at byte `base` (a multiple of 4). The word index clamps,
+    wp = clip(rel, 0, L4 - 1) >> 2, but the byte offset rel & 3 does not;
+    a word wp >= hi_rows reads 0 (both words of the fetch), and so do
+    bytes past the window or past the buffer."""
+    b, length = buf.shape
+    l4 = -(-length // 4) * 4
+    wp = rel.clamp(0, l4 - 1) >> 2
+    k = (4 * wp + (rel & 3))[:, None] + torch.arange(4, device=buf.device)
+    absp = base[:, None] + k
+    got = torch.gather(buf, 1, absp.clamp(0, length - 1)).to(torch.int64)
+    live = (absp < length) & (k < 4 * sh_rows) & (wp < min(sh_rows, hi_rows))[:, None]
+    return torch.where(live, got, 0)
+
+
+def decode_node_bounded(buf, start, buf_len, child_idx):
+    """Serial decode with window-bounded fetches — the walk's `bounded`
+    mode (`zk_state_proofs_tpu/ops/mpt_pallas.py:540-636`).
+
+    The node is read through a window of min(L4/4, 147) words starting at
+    base = (clip(start, 0, L4 - 1) >> 2) * 4: the header at clip(start)
+    through its first 3 words, item i through its first
+    (10 + 35*i + 8) // 4 + 2 words (`_fetch_window`). Returns
+    decode_node_select's dict plus `bound_ovf` [B]: a present item starts
+    more than 10 + 35*i bytes past base, so its fetch may lie outside its
+    window. The caller latches it (on live proofs) and re-runs the exact
+    decode.
+
+    Unlatched, every present fetch lies inside its window and reads the
+    bytes of the exact decode's clamped fetch, with one exception: a
+    present item at a cursor past L4 - 1, which needs a list end past the
+    buffer and is well formed only if the node's length exceeds the
+    buffer (node_lens > L). The TPU kernel does not latch that case and
+    can then disagree with the exact decode (ROADMAP queue 3), so the port
+    latches it too — `bound_ovf` is set on such a node when its list end
+    fits its length."""
+    b, length = buf.shape
+    l4 = -(-length // 4) * 4
+    sh_rows = min(l4 // 4, _SH_ROWS)
+    start = start.to(torch.int64)
+    head_at = start.clamp(0, l4 - 1)
+    base = (head_at >> 2) * 4
+    po, plen, is_list, head_ok = item_head_window(
+        _fetch_window(buf, base, head_at - base, 3, sh_rows))
+    ps = start + po
+    end = ps + plen
+    sel = _empty_sel(start)
+    cursor = ps
+    count = torch.zeros_like(start)
+    all_ok = torch.ones_like(start, dtype=torch.bool)
+    ovf = torch.zeros_like(start, dtype=torch.bool)
+    past = torch.zeros_like(start, dtype=torch.bool)
+    for i in range(MAX_ITEMS):
+        present = cursor < end
+        ovf = ovf | (present & (cursor - base > _item_bound(i)))
+        past = past | (present & (cursor > l4 - 1))
+        ipo, ipl, ilist, ok = item_head_window(_fetch_window(
+            buf, base, cursor - base, (_item_bound(i) + 8) // 4 + 2, sh_rows))
+        ips = cursor + ipo
+        if i == 0:
+            sel["i0_pay"], sel["i0_len"], sel["i0_list"] = ips, ipl, ilist
+        if i == 1:
+            sel["i1_start"], sel["i1_pay"], sel["i1_len"], sel["i1_list"] = (
+                cursor, ips, ipl, ilist)
+        if i == 16:
+            sel["i16_pay"], sel["i16_len"] = ips, ipl
+        if i < 16:
+            hit = present & (child_idx == i)
+            sel["c_start"] = torch.where(hit, cursor, sel["c_start"])
+            sel["c_pay"] = torch.where(hit, ips, sel["c_pay"])
+            sel["c_len"] = torch.where(hit, ipl, sel["c_len"])
+            sel["c_list"] = torch.where(hit, ilist, sel["c_list"])
+        count = count + present.to(torch.int64)
+        all_ok = all_ok & (~present | ok)
+        cursor = torch.where(present, ips + ipl, cursor)
+    sel["count"] = count
+    sel["well_formed"] = (is_list & head_ok & (cursor == end)
+                          & (end <= buf_len) & all_ok)
+    sel["bound_ovf"] = ovf | (past & (end <= buf_len))
+    return sel
+
+
 def decode_node_hinted(buf, h, buf_len, child_idx):
     """Parallel decode at offset hints — the walk's `hinted` mode
     (`zk_state_proofs_tpu/ops/mpt_pallas.py:351-539`).

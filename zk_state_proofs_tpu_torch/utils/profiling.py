@@ -53,3 +53,29 @@ def cuda_timer(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_profile(fn, iters: int, top: int = 8) -> dict:
+    """`fn(i)` for `iters` calls under torch.profiler, after one warm-up
+    call. Returns the host wall ms per call, the device busy ms per call
+    (the sum of kernel and copy times, which do not overlap on one
+    stream), the device launches per call, and the `top` kernels by device
+    time as (name, ms per call, launches per call)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e3 / iters, e.count / iters)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall * 1e3 / iters, "busy_ms": sum(r[1] for r in rows),
+            "launches": sum(r[2] for r in rows), "top": rows[:top]}
