@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width, through the entry points a
-user would call:
+Drives the port's main paths at full width, through the entry points a user
+would call:
 
   * the pooled account-proof verifier behind `BatchVerifier`, at the
     headline shape: 4096 distinct account proofs over a 4096-account trie
@@ -13,7 +13,16 @@ user would call:
     segment schedules;
   * the two-level account -> storage verifier `verify_storage_grouped` on
     the grouped-storage world of bench_configs.py: 512 accounts, each with a
-    256-slot storage trie, 8 slot proofs per account (4096 slot proofs).
+    256-slot storage trie, 8 slot proofs per account (4096 slot proofs);
+  * the pooled verify `verify_proofs_pooled(..., hint_mode=m)` in each of
+    K2's five hinted modes, on the headline batch and on the transaction-
+    geometry batch of bench_configs.py (4096 proofs over a 256-tx block of
+    EIP-1559 txs with 1400-1960 B calldata: about 2 KB leaves, values read
+    back at full width);
+  * the block path: `verify_block_transactions` on that 256-tx block and on
+    mainnet block 46147 (fixtures/, under its pinned transactionsRoot), and
+    `verify_block_receipts` with ERC20 extraction on bench_configs.py's
+    config-3 block (`synthetic_block(128, seed=3)`).
 
 Phases, each printing a line:
 
@@ -26,7 +35,8 @@ Phases, each printing a line:
   5. account path: three requests through BatchVerifier; every headline
      proof FOUND with the oracle's leaf; results equal the plain path on the
      card; K1, hinted and exact launched by the path;
-  6. timings with CUDA events, kernel path against plain path;
+  6. timings with CUDA events, kernel path against plain path (the pooled
+     verify, K1, and K2 in every hinted mode and exact, on the headline);
   7. K2 in mode bounded against its plain version: the full-width slot
      batch, crafted over-bound nodes (latch, then the exact re-run), a trie
      with inline children (served without a latch), the adversarial batch;
@@ -39,7 +49,23 @@ Phases, each printing a line:
  10. timings: the grouped storage call (kernel path against plain path),
      a torch.profiler breakdown of the call and of each of its stages
      alone (launches, host and device time), K2 bounded against exact on
-     the slot batch.
+     the slot batch;
+ 11. hint modes: K2 hinted4, hinted1, ordered and pairskip against their
+     plain versions (headline segments, the adversarial batch, the
+     transaction-geometry batch, a long-form item in branch slot 2 where
+     only hinted4 does not latch, an unordered pack where ordered latches
+     and re-runs in exact); then the pooled verify in each of the five
+     hinted modes on the headline and transaction-geometry batches, equal
+     to hinted's results, each mode launched;
+ 12. block path: all 256 txs FOUND with their encodings, block 46147
+     FOUND with its raw tx under its real root, all 128 receipts FOUND with
+     the transfers of the host decode (both engines), a tampered receipt
+     node INVALID alone, the exact fallback at receipt geometry; each equal
+     to the plain path on the card;
+ 13. timings: the transaction-geometry pooled verify (kernel against plain
+     path), a device-time A/B of the five hinted modes on the headline and
+     transaction-geometry batches, K1 on the transaction-geometry pool, and
+     the share of K2's value copy at that geometry.
 
 Any failed check exits non-zero. The next-to-last line is a JSON object of
 the kernels; the last line is {"ok": true, "device": {...}}. Uses no JAX and
@@ -59,8 +85,13 @@ import torch
 
 try:
     from zk_state_proofs_tpu_torch import native
-    from zk_state_proofs_tpu_torch.models import (BatchVerifier, verify_storage_batch,
+    from zk_state_proofs_tpu_torch.models import (BatchVerifier, decode_receipt_value,
+                                                  extract_erc20_transfers,
+                                                  verify_block_receipts,
+                                                  verify_block_transactions,
+                                                  verify_merkle_batch, verify_storage_batch,
                                                   verify_storage_grouped)
+    from zk_state_proofs_tpu_torch.models.blocks import _bucket_for
     from zk_state_proofs_tpu_torch.models.verifier import (_slot_key_nibbles,
                                                            _storage_core_grouped)
     from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
@@ -70,10 +101,16 @@ try:
     from zk_state_proofs_tpu_torch.ops.rlp import bytes_to_nibbles_device
     from zk_state_proofs_tpu_torch.oracle import EthTrie, keccak256 as oracle_keccak, rlp
     from zk_state_proofs_tpu_torch.utils.config import BucketConfig
-    from zk_state_proofs_tpu_torch.utils.profiling import cuda_timer, device_profile
-    from zk_state_proofs_tpu_torch.witness import host_item_offsets, pack_proofs
+    from zk_state_proofs_tpu_torch.utils.profiling import (cuda_timer, device_profile,
+                                                           queued_timer)
+    from zk_state_proofs_tpu_torch.witness import (
+        ERC20_TRANSFER_TOPIC, encode_receipt, encode_transaction,
+        get_all_receipt_proof_inputs, get_all_transaction_proof_inputs,
+        get_transaction_proof_input, host_item_offsets, load_fixture, pack_proofs,
+        synthetic_block)
     from zk_state_proofs_tpu_torch.witness_bridge import (
-        BATCH_FIELDS, POOL_FIELDS, account_entries, packed_to_tensors, storage_world)
+        BATCH_FIELDS, POOL_FIELDS, account_entries, packed_to_tensors, storage_world,
+        tx_geometry_batch, tx_geometry_block)
 except ImportError as exc:  # run outside a checkout of the repo
     print(f"FAIL: the repository's packages are not importable here: {exc}")
     sys.exit(1)
@@ -81,6 +118,15 @@ except ImportError as exc:  # run outside a checkout of the repo
 N_ACCOUNTS = 4096
 TIMED_ITERS = 20
 STORAGE_WORLD = (512, 8, 256)  # accounts, slot proofs per account, slots per trie
+TX_BLOCK = (256, 11)     # txs, seed: bench_configs.py _tx_geometry_batch (quick=False)
+TX_PROOFS = 4096         # proofs in the transaction-geometry batch
+RECEIPT_BLOCK = (128, 3)  # synthetic_block(num_txs, seed): bench_configs.py config 3
+PLAIN_ITERS = 3           # timed iterations of a plain path at transaction geometry
+VARIANTS = ("hinted4", "hinted1", "ordered", "pairskip")  # K2's variants of hinted
+# How device times are taken. torch.profiler lost kernel records in some
+# windows of this script's runs (fewer kernels than launched), so device
+# times come from CUDA events around calls queued behind a spin kernel.
+DEVICE_TIMING = "CUDA events, 20 calls queued behind a spin kernel"
 
 # The least time a kernel could take (`bound_ms`): the larger of its bytes
 # over the memory rate and its operations over the ALU rate.
@@ -201,10 +247,10 @@ def main() -> None:
     # ---- 4. K2 against its plain version --------------------------------
     dig_table, hint_table = mpt.hash_nodes_pooled(pn, pl, pool[2], ht["pool_hints"], psegs)
     max_steps = headline.nodes.shape[1] + 6
-
-    def seg_args(t, dig, hints, sl, d):
-        return ([t[0][sl, :d], t[1][sl, :d], t[2][sl], dig[sl, :d], t[3][sl],
-                 t[4][sl], t[5][sl]], hints[sl, :d])
+    hctx = {"batch": batch, "pool": pool, "pool_hints": ht["pool_hints"], "segs": segs,
+            "psegs": psegs, "dig": dig_table, "htab": hint_table, "steps": max_steps,
+            "entries": entries, "leaves": leaves}
+    head_segs = head_segments(hctx)
 
     k2_err = {"hinted": 0, "exact": 0}
 
@@ -217,11 +263,8 @@ def main() -> None:
             k2_err[mode] = max(k2_err[mode], e)
             check(e == 0, f"K2 {mode} differs from plain on {label} (max abs err {e})")
 
-    off = 0
-    for cnt, d in segs:
-        a, h = seg_args(batch, dig_table, hint_table, slice(off, off + cnt), d)
+    for (a, h), (cnt, d) in zip(head_segs, segs):
         compare_k2(a, h, f"headline segment ({cnt}, {d})")
-        off += cnt
 
     adv_entries, inline_entries = adversarial_entries(entries)
     adv = pack_proofs(adv_entries + inline_entries, max_nodes=12, node_len=576)
@@ -231,12 +274,11 @@ def main() -> None:
     b_, d_, n_ = adv.nodes.shape
     ahints = torch.from_numpy(host_item_offsets(adv.nodes.reshape(b_ * d_, n_))
                               .reshape(b_, d_, 36)).to(dev)
-    compare_k2([abatch[0], abatch[1], abatch[2], adig, *abatch[3:]], ahints,
-               "the adversarial batch", steps=d_ + 6)
+    adv_args = lane_args(abatch, adig)
+    compare_k2(adv_args, ahints, "the adversarial batch", steps=d_ + 6)
 
     # corrupted hints: ovf latches, the exact kernel re-runs, results unchanged
-    sl = slice(0, segs[0][0])
-    a, h = seg_args(batch, dig_table, hint_table, sl, segs[0][1])
+    a, h = head_segs[0]
     honest = mpt_cuda.walk_batch_cuda(*a, 128, max_steps, hints=h, with_reasons=True)
     corrupt = (h.to(torch.int32) + 7).remainder(255).to(torch.uint8)
     compare_k2(a, corrupt, "corrupted hints")
@@ -345,13 +387,10 @@ def main() -> None:
                              for o, (c, w) in zip(seg_offsets(psegs), psegs)]),
         TIMED_ITERS)
     k2 = {}
-    for mode in ("hinted", "exact"):
+    for mode in ("hinted", "exact") + VARIANTS:
         def run(i, fn):
-            off = 0
-            for cnt, d in segs:
-                a, h = seg_args(batch, dig_table, hint_table, slice(off, off + cnt), d)
+            for a, h in head_segs:
                 fn(mode, *a, 128, max_steps, hints=h)
-                off += cnt
         k2[mode] = (cuda_timer(lambda i: run(i, mpt_cuda.walk_lanes), TIMED_ITERS),
                     cuda_timer(lambda i: run(i, mpt.walk_kernel_plain), TIMED_ITERS))
     log(f"[6 time] K1 keccak, {pn.shape[0]}-row headline pool, segmented: "
@@ -361,18 +400,26 @@ def main() -> None:
             f"segments: kernel {km:.4f} ms, plain {pm:.4f} ms on {card}")
     # ---- 7-10. K2 bounded, K3, the storage path, their timings ----------
     sw = storage_witness(dev)
-    adv_args = [abatch[0], abatch[1], abatch[2], adig, *abatch[3:]]
     bnd = phase_bounded(sw, adv_args, inline_entries, dev)
     k3 = phase_k3(pn, pl, dig_k, card, dev)
     sto = phase_storage(sw, card, dev)
+    del sw
+
+    # ---- 11-13. the hint modes, the block path, their timings -----------
+    adv_ctx = {"args": adv_args, "hints": ahints, "steps": d_ + 6}
+    txw = tx_witness(dev)
+    hm = phase_hint_modes(hctx, adv_ctx, txw, dev)
+    blk = phase_blocks(txw, repo, dev)
+    phase_block_timings(hctx, txw, hm["tx_result"], card)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "zk_state_proofs_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
     # ---- the kernels line -------------------------------------------------
     # each main path's launches, counted from zero over its own run (phases
-    # 5 and 9); `launches` is their sum
-    by_path = {"accounts": launches, "storage": sto["launches"]}
+    # 5, 9, 11 and 12); `launches` is their sum
+    by_path = {"accounts": launches, "storage": sto["launches"],
+               "hint_modes": hm["launches"], "blocks": blk["launches"]}
     headline_lens = (batch[0], batch[1], batch[2])
     src = "zk_state_proofs_tpu_torch/csrc/"
     kernels = [kernel_row(
@@ -384,6 +431,12 @@ def main() -> None:
             "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, mode,
             k2_err[mode], k2[mode][0], k2[mode][1],
             walk_bound(*headline_lens, batch[4].shape[1], 128, mode == "hinted")))
+    for mode in VARIANTS:
+        kernels.append(kernel_row(
+            f"mpt_walk_{mode}", src + "mpt_walk.cu",
+            "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, mode,
+            hm["err"][mode], k2[mode][0], k2[mode][1],
+            walk_bound(*headline_lens, batch[4].shape[1], 128, True)))
     kernels.append(kernel_row(
         "mpt_walk_bounded", src + "mpt_walk.cu",
         "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, "bounded",
@@ -469,8 +522,7 @@ def storage_witness(dev):
     ap, sp = w.pack()
     at, st = packed_to_tensors(ap, dev), packed_to_tensors(sp, dev)
     s_dig = mpt.hash_nodes_pooled(*(st[k] for k in POOL_FIELDS))
-    slot_args = [st["nodes"], st["node_lens"], st["num_nodes"], s_dig, st["roots"],
-                 st["key_nibbles"], st["key_lens"]]
+    slot_args = lane_args([st[k] for k in BATCH_FIELDS], s_dig)
     mb = (ap.nodes.nbytes + sp.nodes.nbytes) / 1e6
     log(f"[witness] storage world {STORAGE_WORLD}: {ap.batch} account proofs "
         f"{tuple(ap.nodes.shape)}, {sp.batch} slot proofs {tuple(sp.nodes.shape)} "
@@ -513,7 +565,7 @@ def phase_bounded(sw, adv_args, inline_entries, dev):
     packed = pack_proofs(over_bound_entries(), node_len=704)
     t = packed_to_tensors(packed, dev, pool=False)
     b = [t[k] for k in BATCH_FIELDS]
-    args = [b[0], b[1], b[2], mpt.hash_nodes(b[0], b[1]), *b[3:]]
+    args = lane_args(b, mpt.hash_nodes(b[0], b[1]))
     check(bool((compare(args, "over-bound nodes", 64) == 1).all()),
           "over-bound nodes did not latch the bounded flag")
     exact_before = mpt_cuda.LAUNCHES["exact"]
@@ -527,7 +579,7 @@ def phase_bounded(sw, adv_args, inline_entries, dev):
     packed = pack_proofs(inline_entries, node_len=576)
     t = packed_to_tensors(packed, dev, pool=False)
     b = [t[k] for k in BATCH_FIELDS]
-    args = [b[0], b[1], b[2], mpt.hash_nodes(b[0], b[1]), *b[3:]]
+    args = lane_args(b, mpt.hash_nodes(b[0], b[1]))
     check(int(compare(args, "the inline-node trie", 64).sum()) == 0,
           "bounded latched on inline children")
     compare(adv_args, "the adversarial batch", 128)
@@ -575,24 +627,48 @@ def phase_k3(pn, pl, dig_k, card, dev):
     t["k1_2"], t["k3_2"] = timed(keccak_cuda.keccak256_cuda), timed(keccak_cuda.keccak256_cuda_raw)
     plain_ms = timed(tkeccak.keccak256_raw)
     ms, k1_ms = min(t["k3"], t["k3_2"]), min(t["k1"], t["k1_2"])
-    dev_us = {name: 1e3 * kernel_device_ms(lambda i: fn(pn, pl), kname)
-              for name, fn, kname in (("K3", keccak_cuda.keccak256_cuda_raw, "keccak256_raw"),
-                                      ("K1", keccak_cuda.keccak256_cuda, "keccak256_rows"))}
+    dev_us = {name: device_us(lambda i: fn(pn, pl))
+              for name, fn in (("K3", keccak_cuda.keccak256_cuda_raw),
+                               ("K1", keccak_cuda.keccak256_cuda))}
     log(f"[8 K3] keccak256_raw kernel == plain == K1 on edge lengths {edge} at "
         f"widths 576 and 573 and the {pn.shape[0]}-row headline pool; oracle sample "
         f"ok; max abs err 0")
     log(f"[8 time] headline pool, {pn.shape[0]} rows x {pn.shape[1]} B, one launch: "
         f"K3 {ms:.4f} ms, K1 {k1_ms:.4f} ms, K3 plain {plain_ms:.4f} ms "
-        f"(runs {t}); device time per launch (torch.profiler, 20 launches): "
-        f"K3 {dev_us['K3']:.2f} us, K1 {dev_us['K1']:.2f} us on {card}")
+        f"(runs {t}); device time per launch ({DEVICE_TIMING}): "
+        f"K3 {us_text(dev_us['K3'])}, K1 {us_text(dev_us['K1'])} on {card}")
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def kernel_device_ms(fn, name_part, iters=20):
-    """Device ms per call of the kernels whose name holds `name_part`, from
-    a torch.profiler window of `iters` calls of fn(i)."""
-    prof = device_profile(fn, iters)
-    return sum(ms for name, ms, _ in prof["top"] if name_part in name)
+def device_us(fn):
+    """Device µs per call of fn(i) (utils.profiling.queued_timer; None:
+    not measured)."""
+    ms = queued_timer(fn, TIMED_ITERS)
+    return None if ms is None else 1e3 * ms
+
+
+def kernel_device_us(fn, name_part, launches, iters=20, tries=3):
+    """Device µs per call of the kernels whose name holds `name_part`, from
+    a torch.profiler window of `iters` calls of fn(i). The profiler can
+    lose kernel records: a window that counts other than `launches` such
+    kernels a call is taken again, up to `tries` windows. None if no
+    window was whole."""
+    for _ in range(tries):
+        rows = [(ms, n) for name, ms, n in device_profile(fn, iters)["top"]
+                if name_part in name]
+        if abs(sum(n for _, n in rows) - launches) < 1e-9:
+            return 1e3 * sum(ms for ms, _ in rows)
+    return None
+
+
+def lower(*times):
+    """The lowest measured time (None: not measured)."""
+    got = [t for t in times if t is not None]
+    return min(got) if got else None
+
+
+def us_text(t):
+    return "not measured" if t is None else f"{t:.2f} us"
 
 
 def storage_fields(res):
@@ -758,15 +834,368 @@ def phase_storage(sw, card, dev):
     b_plain_ms = walk("bounded", mpt.walk_kernel_plain)
     dev_us = {}
     for m in ("bounded", "exact", "exact", "bounded"):  # the lower of two windows each
-        us = 1e3 * kernel_device_ms(lambda i: mpt_cuda.walk_lanes(m, *sargs, 64, steps),
-                                    "mpt_walk")
-        dev_us[m] = min(dev_us.get(m, us), us)
+        us = device_us(lambda i: mpt_cuda.walk_lanes(m, *sargs, 64, steps))
+        dev_us[m] = lower(dev_us.get(m), us)
     log(f"[10 time] K2 on the {n_slots}-slot batch {tuple(sargs[0].shape)}: bounded "
         f"{b_ms:.4f} ms, exact {e_ms:.4f} ms, bounded plain {b_plain_ms:.4f} ms "
-        f"(runs {wt}); device time per launch (torch.profiler, 20 launches): "
-        f"bounded {dev_us['bounded']:.2f} us, exact {dev_us['exact']:.2f} us on {card}")
+        f"(runs {wt}); device time per launch ({DEVICE_TIMING}): "
+        f"bounded {us_text(dev_us['bounded'])}, exact {us_text(dev_us['exact'])} on {card}")
     return {"launches": launches, "bounded_ms": b_ms, "bounded_plain_ms": b_plain_ms,
             "bounded_bound": walk_bound(*sargs[:3], sargs[5].shape[1], 64, False)}
+
+
+def lane_args(batch, digests):
+    """walk_lanes' seven proof tensors from BATCH_FIELDS tensors and a
+    digest table."""
+    return [batch[0], batch[1], batch[2], digests, *batch[3:]]
+
+
+def head_segments(head):
+    """(walk_lanes args, hints) of each headline depth segment."""
+    b, out = head["batch"], []
+    for o, (cnt, d) in zip(seg_offsets(head["segs"]), head["segs"]):
+        sl = slice(o, o + cnt)
+        out.append(([b[0][sl, :d], b[1][sl, :d], b[2][sl], head["dig"][sl, :d], b[3][sl],
+                     b[4][sl], b[5][sl]], head["htab"][sl, :d]))
+    return out
+
+
+def long_slot_node():
+    """A 17-item list whose items 0 and 1 are empty, item 2 a 60-byte
+    string (a long-form header in branch slot 2, inside its bound) and the
+    rest empty: `hinted` latches on it, `hinted4` does not."""
+    return rlp.encode([b"", b"", b"\x5a" * 60] + [b""] * 14)
+
+
+def tx_witness(dev):
+    """The transaction-geometry block and its 4096-proof batch on the card,
+    with the scattered digest and hint tables."""
+    t0 = time.time()
+    block = tx_geometry_block(*TX_BLOCK)
+    geo = tx_geometry_batch(block, TX_PROOFS)
+    t = packed_to_tensors(geo.packed, dev)
+    pool = [t[k] for k in POOL_FIELDS]
+    dig, htab = mpt.hash_nodes_pooled(*pool, t["pool_hints"])
+    nodes = geo.packed.nodes
+    want = np.zeros((geo.packed.batch, geo.max_value_len), np.uint8)
+    for i, v in enumerate(geo.values):
+        want[i, :len(v)] = np.frombuffer(v, np.uint8)
+    log(f"[witness] transaction geometry: a {TX_BLOCK[0]}-tx block, {geo.packed.batch} "
+        f"proofs, nodes {tuple(nodes.shape)} ({nodes.nbytes / 1e6:.1f} MB), pool "
+        f"{tuple(geo.packed.pool()[0].shape)}, max_value_len {geo.max_value_len}, "
+        f"max_steps {geo.max_steps}, built in {time.time() - t0:.1f} s")
+    return {"block": block, "geo": geo, "t": t, "batch": [t[k] for k in BATCH_FIELDS],
+            "pool": pool, "dig": dig, "htab": htab, "want_values": want,
+            "want_lens": np.asarray([len(v) for v in geo.values], np.int32)}
+
+
+def phase_hint_modes(head, adv, txw, dev):
+    """Phase 11: K2 hinted4, hinted1, ordered and pairskip against their
+    plain versions; the pooled verify in each of the five hinted modes."""
+    err = dict.fromkeys(VARIANTS, 0)
+
+    def compare(args, hints, label, mvl, steps):
+        flags = {}
+        for mode in VARIANTS:
+            got = mpt_cuda.walk_lanes(mode, *args, mvl, steps, hints=hints)
+            torch.cuda.synchronize()
+            want = mpt.walk_kernel_plain(mode, *args, mvl, steps, hints=hints)
+            e = max_err(got, want)
+            err[mode] = max(err[mode], e)
+            check(e == 0, f"K2 {mode} differs from plain on {label} (max abs err {e})")
+            flags[mode] = got[0][:, 4]
+        return flags
+
+    for args, hints in head_segments(head):
+        compare(args, hints, "a headline segment", 128, head["steps"])
+    compare(adv["args"], adv["hints"], "the adversarial batch", 128, adv["steps"])
+    geo = txw["geo"]
+    targs = lane_args(txw["batch"], txw["dig"])
+    flags = compare(targs, txw["htab"], "the transaction-geometry batch",
+                    geo.max_value_len, geo.max_steps)
+    check(all(int(f.sum()) == 0 for f in flags.values()),
+          "a hinted mode latched on the honest transaction-geometry batch")
+
+    # a long-form item in branch slot 2, and an unordered pack (root last)
+    entries, leaves = head["entries"], head["leaves"]
+    node = long_slot_node()
+    crafted = (entries[:8] + [(r, p[::-1], k) for r, p, k in entries[8:16]]
+               + [(oracle_keccak(node), [node], b"\x20" + bytes(31))])
+    packed = pack_proofs(crafted, node_len=576)
+    t = packed_to_tensors(packed, dev, pool=False)
+    b = [t[k] for k in BATCH_FIELDS]
+    cargs = lane_args(b, mpt.hash_nodes(b[0], b[1]))
+    bb, d, n = packed.nodes.shape
+    chints = torch.from_numpy(host_item_offsets(packed.nodes.reshape(bb * d, n))
+                              .reshape(bb, d, 36)).to(dev)
+    flags = compare(cargs, chints, "the crafted batch", 128, d + 6)
+    hinted_out = mpt_cuda.walk_lanes("hinted", *cargs, 128, d + 6, hints=chints)[0]
+    exact_out = mpt_cuda.walk_lanes("exact", *cargs, 128, d + 6)[0]
+    h4_out = mpt_cuda.walk_lanes("hinted4", *cargs, 128, d + 6, hints=chints)[0]
+    check(int(hinted_out[-1, 4]) == 1 and int(flags["hinted4"][-1]) == 0
+          and bool((h4_out[-1] == exact_out[-1]).all()),
+          "hinted4 did not serve the long-form slot-2 node where hinted latches")
+    check(bool((flags["ordered"][8:16] == 1).all()) and int(hinted_out[8:16, 4].sum()) == 0,
+          "ordered did not latch on the unordered pack")
+    exact_before = mpt_cuda.LAUNCHES["exact"]
+    got = mpt_cuda.walk_batch_cuda(*cargs, 128, d + 6, hints=chints, with_reasons=True,
+                                   hint_mode="ordered")
+    check(mpt_cuda.LAUNCHES["exact"] == exact_before + 1,
+          "the unordered pack did not re-run in exact")
+    out, values = mpt.walk_kernel_plain("exact", *cargs, 128, d + 6)
+    want = (out[:, 0], values, torch.where(out[:, 0] == mpt.FOUND, out[:, 3], 0), out[:, 5])
+    check(max_err(got, want) == 0, "the exact re-run differs from the plain exact walk")
+    st, vals, vlens = (x.cpu().numpy() for x in got[:3])
+    check(all(st[i] == mpt.FOUND and bytes(vals[i, :vlens[i]]) == leaves[crafted[i][2]]
+              for i in range(16)), "the unordered pack's proofs are not FOUND with their leaves")
+
+    # the main path of this phase: the pooled verify in every hinted mode
+    zero_counts()
+    res = {}
+    for mode in mpt.HINT_MODES:
+        before = mpt_cuda.LAUNCHES[mode]
+        res[mode] = (
+            mpt.verify_proofs_pooled(*head["batch"], *head["pool"], head["pool_hints"],
+                                     max_value_len=128, hint_mode=mode,
+                                     depth_segments=head["segs"], pool_segments=head["psegs"]),
+            mpt.verify_proofs_pooled(*txw["batch"], *txw["pool"], txw["t"]["pool_hints"],
+                                     max_value_len=geo.max_value_len,
+                                     max_steps=geo.max_steps, hint_mode=mode))
+        torch.cuda.synchronize()
+        check(mpt_cuda.LAUNCHES[mode] == before + len(head["segs"]) + 1,
+              f"the pooled verify did not launch K2 {mode}")
+    launches = read_counts()
+    check(launches["exact"] == 0, "an honest batch re-ran in exact")
+    (hs, hv, hl), (ts, tv, tl) = (tuple(x.cpu().numpy() for x in r) for r in res["hinted"])
+    check(bool((hs == mpt.FOUND).all()) and all(
+        bytes(hv[i, :hl[i]]) == head["leaves"][e[2]] for i, e in enumerate(head["entries"])),
+        "the headline pooled verify is not FOUND with the oracle leaves")
+    check(bool((ts == mpt.FOUND).all()) and bool((tl == txw["want_lens"]).all())
+          and bool((tv == txw["want_values"]).all()),
+          "the transaction-geometry verify is not FOUND with the encoded txs")
+    for mode in VARIANTS:
+        for got, want in zip(res[mode], res["hinted"]):
+            check(max_err(got, want) == 0, f"hint_mode={mode} differs from hinted")
+    log(f"[11 hints] walk kernel == plain in modes {', '.join(VARIANTS)} (six words and "
+        f"values) on {len(head['segs'])} headline segments, the adversarial batch, the "
+        f"{geo.packed.batch}-proof transaction-geometry batch (no latch) and a crafted "
+        f"batch; hinted4 served the long-form slot-2 node where hinted latches; ordered "
+        f"latched on the 8 unordered proofs and re-ran in exact (FOUND, the oracle "
+        f"leaves); max abs err {max(err.values())}")
+    log(f"[11 hints] verify_proofs_pooled in modes {', '.join(mpt.HINT_MODES)} on the "
+        f"headline batch ({len(head['segs'])} segments) and the transaction-geometry "
+        f"batch: every proof FOUND with its value, every mode equal to hinted; "
+        f"launches {launches}")
+    return {"err": err, "launches": launches, "tx_result": res["hinted"][1]}
+
+
+def block_pack(entries):
+    """(packed, max_value_len) of block proofs, packed as
+    models.blocks.verify_block_* pack them."""
+    bucket = _bucket_for(entries, key_nibbles=8)
+    return (pack_proofs(entries, max_nodes=bucket.max_nodes, node_len=bucket.node_len,
+                        key_nibbles=bucket.key_nibbles), bucket.max_value_len)
+
+
+def plain_block(entries, dev):
+    """A block request verified on the plain path on the card, as
+    verify_merkle_batch routes it: (status, values, value_lens)."""
+    packed, mvl = block_pack(entries)
+    t = packed_to_tensors(packed, dev)
+    out = plain_pooled([t[k] for k in BATCH_FIELDS], [t[k] for k in POOL_FIELDS],
+                       t["pool_hints"], max_value_len=mvl)
+    return [x.cpu() for x in out]
+
+
+def result_tensors(res):
+    return [torch.from_numpy(np.asarray(x)) for x in (res.status, res.values, res.value_lens)]
+
+
+def host_transfers(receipts):
+    """The ERC20 transfers of the host decode of each encoded receipt."""
+    topic = bytes.fromhex(ERC20_TRANSFER_TOPIC[2:])
+    out = []
+    for i, r in enumerate(receipts):
+        for lg in decode_receipt_value(encode_receipt(r))["logs"]:
+            if lg["topics"] and lg["topics"][0] == topic and len(lg["topics"]) == 3:
+                out.append((lg["address"], lg["topics"][1][-20:], lg["topics"][2][-20:],
+                            int.from_bytes(lg["data"][:32], "big"), i))
+    return out
+
+
+def transfer_fields(transfers):
+    return [(t.token, t.sender, t.receiver, t.amount, t.tx_index) for t in transfers]
+
+
+def phase_blocks(txw, repo, dev):
+    """Phase 12: the block path on the card, each result against the
+    oracle's encodings and the plain path on the card."""
+    block = txw["block"]
+    fx = synthetic_block(*RECEIPT_BLOCK)
+    b46147 = load_fixture(os.path.join(repo, "fixtures", "mainnet_block_46147.json"))
+    r_entries = [x.as_entry() for x in get_all_receipt_proof_inputs(fx["block"],
+                                                                    fx["receipts"])]
+    bad_row = 17
+    proof = list(r_entries[bad_row][1])
+    leaf = bytearray(proof[-1])
+    leaf[-1] ^= 1
+    proof[-1] = bytes(leaf)
+    tampered = list(r_entries)
+    tampered[bad_row] = (r_entries[bad_row][0], proof, r_entries[bad_row][2])
+    node = long_slot_node()
+    fallback = r_entries + [(oracle_keccak(node), [node], b"\x20")]
+
+    # the main path of this phase, counted from zero
+    zero_counts()
+    t0 = time.time()
+    rtx = verify_block_transactions(block, device=dev)
+    r46 = verify_block_transactions(b46147, device=dev)
+    rrc, transfers = verify_block_receipts(fx["block"], fx["receipts"], device=dev)
+    tpacked, tmvl = block_pack(tampered)
+    rtam = verify_merkle_batch(tpacked, max_value_len=tmvl, device=dev)
+    exact_before = mpt_cuda.LAUNCHES["exact"]
+    fpacked, fmvl = block_pack(fallback)
+    rfb = verify_merkle_batch(fpacked, max_value_len=fmvl, device=dev)
+    torch.cuda.synchronize()
+    host_s = time.time() - t0
+    launches = read_counts()
+    for name in ("keccak256", "hinted", "exact"):
+        check(launches[name] > 0, f"the block path launched the {name} kernel no time")
+
+    txs = block["transactions"]
+    check(rtx.status.shape == (len(txs),) and rtx.all_found
+          and all(rtx.value(i) == encode_transaction(tx) for i, tx in enumerate(txs)),
+          f"the {len(txs)}-tx block: not every tx FOUND with its encoding")
+    raw = encode_transaction(b46147["transactions"][0])
+    check(get_transaction_proof_input(b46147, 0).root_hash.hex()
+          == b46147["transactionsRoot"][2:] and r46.all_found and r46.value(0) == raw,
+          "block 46147: its tx is not FOUND with its raw bytes under the pinned root")
+    n_rc = len(fx["receipts"])
+    check(rrc.status.shape == (n_rc,) and rrc.all_found
+          and all(rrc.value(i) == encode_receipt(r) for i, r in enumerate(fx["receipts"])),
+          "not every receipt FOUND with its encoding")
+    want = host_transfers(fx["receipts"])
+    vec = extract_erc20_transfers(rrc.values, rrc.value_lens, rrc.status, engine="vectorized")
+    check(len(want) > 0 and transfer_fields(transfers) == want
+          and transfer_fields(vec) == want,
+          "the ERC20 transfers differ from the host decode")
+    others = np.arange(n_rc) != bad_row
+    check(rtam.status[bad_row] == mpt.INVALID and bool((rtam.status[others] == mpt.FOUND).all())
+          and bool((rtam.values[others] == rrc.values[others]).all()),
+          "a tampered receipt node did not turn exactly its receipt INVALID")
+    check(mpt_cuda.LAUNCHES["exact"] == exact_before + 1 and rfb.status[-1] == mpt.INVALID
+          and bool((rfb.status[:n_rc] == mpt.FOUND).all())
+          and bool((rfb.values[:n_rc] == rrc.values).all()),
+          "the receipt batch with a latching node did not re-run in exact with the "
+          "honest results")
+    tx_entries = [x.as_entry() for x in get_all_transaction_proof_inputs(block)]
+    b_entries = [x.as_entry() for x in get_all_transaction_proof_inputs(b46147)]
+    for res, ents, label in ((rtx, tx_entries, "transactions"), (r46, b_entries, "46147"),
+                             (rrc, r_entries, "receipts"), (rtam, tampered, "tampered"),
+                             (rfb, fallback, "fallback")):
+        check(max_err(result_tensors(res), plain_block(ents, dev)) == 0,
+              f"the block path ({label}) differs from the plain path on the card")
+    log(f"[12 blocks] verify_block_transactions: all {len(txs)} txs FOUND with their "
+        f"encodings (values up to {int(rtx.value_lens.max())} B, nodes "
+        f"{rtx.values.shape[1]} B wide); block 46147 FOUND with its raw tx under its "
+        f"pinned transactionsRoot; verify_block_receipts: all {n_rc} receipts FOUND, "
+        f"{len(transfers)} ERC20 transfers equal to the host decode with both engines; "
+        f"a tampered receipt node turned exactly receipt {bad_row} INVALID; a latching "
+        f"node re-ran the receipt batch in exact with the honest results; all equal to "
+        f"the plain path on the card ({host_s:.2f} s host time incl. trie builds and "
+        f"packing); launches {launches}")
+    return {"launches": launches}
+
+
+def phase_block_timings(head, txw, tx_result, card):
+    """Phase 13: the transaction-geometry pooled verify, kernel against
+    plain path; a device-time A/B of the five hinted modes; K1 on the
+    transaction-geometry pool; the share of K2's value copy."""
+    geo, batch, pool = txw["geo"], txw["batch"], txw["pool"]
+    hints = txw["t"]["pool_hints"]
+    nodes, pnodes = batch[0], pool[0]
+    n_proofs, mvl, steps = geo.packed.batch, geo.max_value_len, geo.max_steps
+    _, v0, l0 = tx_result
+    fold = v0.to(torch.int64).sum(1) + (l0.to(torch.int64) << 8)
+    acc = torch.zeros_like(fold)
+    accv = torch.zeros_like(fold)
+
+    def pooled(i, kernels):
+        # distinct work per iteration: the last padding byte of every node
+        # row changes; results do not
+        nodes[:, :, -1] = i & 0xFF
+        pnodes[:, -1] = i & 0xFF
+        fn = mpt.verify_proofs_pooled if kernels else plain_pooled
+        kw = dict(max_value_len=mvl, max_steps=steps)
+        s, v, l = fn(*batch, *pool, hints, **kw) if kernels else fn(batch, pool, hints, **kw)
+        acc.add_(s)
+        accv.add_(v.to(torch.int64).sum(1) + (l.to(torch.int64) << 8))
+
+    times = {}
+    for label, kern, iters in (("plain", False, PLAIN_ITERS), ("kernel", True, TIMED_ITERS),
+                               ("kernel2", True, TIMED_ITERS), ("plain2", False, PLAIN_ITERS)):
+        acc.zero_()
+        accv.zero_()
+        times[label] = cuda_timer(lambda i: pooled(i, kern), iters)
+        check(bool((acc == (iters + 2) * mpt.FOUND).all())
+              and bool((accv == (iters + 2) * fold).all()),
+              f"perturbed padding changed the transaction-geometry results ({label} path)")
+    k_ms = min(times["kernel"], times["kernel2"])
+    p_ms = min(times["plain"], times["plain2"])
+    log(f"[13 time] pooled verify at transaction geometry, {n_proofs} proofs "
+        f"{tuple(nodes.shape)}, values {mvl} B: kernel path {k_ms:.4f} ms/batch = "
+        f"{n_proofs / k_ms * 1e3:,.0f} proofs/s; plain path {p_ms:.4f} ms/batch = "
+        f"{n_proofs / p_ms * 1e3:,.0f} proofs/s (runs {times}) on {card}")
+    prof = device_profile(lambda i: mpt.verify_proofs_pooled(
+        *batch, *pool, hints, max_value_len=mvl, max_steps=steps), 10)
+    top = "; ".join(f"{n[:50]} {ms * 1e3:.1f} us x{c:.0f}" for n, ms, c in prof["top"])
+    log(f"[13 profile] pooled verify at transaction geometry, torch.profiler over 10 "
+        f"calls: host {prof['wall_ms']:.4f} ms/call, device busy {prof['busy_ms']:.4f} "
+        f"ms/call ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
+        f"{prof['launches']:.0f} device launches/call; top by device time: {top} on {card}")
+
+    segs = head_segments(head)
+    targs = lane_args(batch, txw["dig"])
+
+    def head_run(mode):
+        for args, h in segs:
+            mpt_cuda.walk_lanes(mode, *args, 128, head["steps"], hints=h)
+
+    def tx_run(mode, mvl_=mvl):
+        mpt_cuda.walk_lanes(mode, *targs, mvl_, steps, hints=txw["htab"])
+
+    ab = {"headline": {}, "transaction geometry": {}}
+    prof_ab = {"headline": {}, "transaction geometry": {}}
+    order = mpt.HINT_MODES + mpt.HINT_MODES[::-1]  # the lower of two windows each
+    for label, run, n in (("headline", head_run, len(segs)),
+                          ("transaction geometry", tx_run, 1)):
+        for m in order:
+            ab[label][m] = lower(ab[label].get(m), device_us(lambda i: run(m)))
+            prof_ab[label][m] = lower(prof_ab[label].get(m),
+                                      kernel_device_us(lambda i: run(m), "mpt_walk", n))
+        log(f"[13 A/B] K2 device time per batch on the {label} batch ({DEVICE_TIMING}, "
+            f"the lower of two windows): " + ", ".join(
+                f"{m} {us_text(us)}" for m, us in ab[label].items())
+            + "; torch.profiler, windows that kept every kernel record: " + ", ".join(
+                f"{m} {us_text(us)}" for m, us in prof_ab[label].items()) + f" on {card}")
+    copy = {}
+    for m in (mvl, 0, 0, mvl):
+        copy[m] = lower(copy.get(m), device_us(lambda i: tx_run("hinted", m)))
+    share = ("not measured" if None in copy.values()
+             else f"{100 * (copy[mvl] - copy[0]) / copy[mvl]:.1f}%")
+    log(f"[13 copy] K2 hinted at transaction geometry: {us_text(copy[mvl])} with the "
+        f"{mvl}-byte value copy, {us_text(copy[0])} without (max_value_len 0): the copy is "
+        f"{share} of the walk's device time on {card}")
+    pn, pl = pool[0], pool[1]
+    k1_ms = cuda_timer(lambda i: mpt._hash_pool_rows(pn, pl), TIMED_ITERS)
+    k1_us = device_us(lambda i: mpt._hash_pool_rows(pn, pl))
+    k1_bound = keccak_bound(pl, ((pn.shape[0], pn.shape[1]),))
+    log(f"[13 time] K1 on the transaction-geometry pool {tuple(pn.shape)}, one launch: "
+        f"{k1_ms:.4f} ms, device {us_text(k1_us)}, bound {k1_bound[0]:.5f} ms "
+        f"({k1_bound[1]}) on {card}")
+    tx_bound = walk_bound(*batch[:3], batch[4].shape[1], mvl, True)
+    log(f"[13 bound] K2 hinted at transaction geometry: bound {tx_bound[0]:.5f} ms "
+        f"({tx_bound[1]}); device {us_text(ab['transaction geometry']['hinted'])}")
 
 
 def adversarial_entries(entries):
@@ -798,11 +1227,12 @@ def adversarial_entries(entries):
     return adv, inline
 
 
-def plain_walk(batch, digests, hints, max_value_len):
+def plain_walk(batch, digests, hints, max_value_len, max_steps=None):
     """walk_batch_cuda from the plain walk, on any device: hinted with
     hints, bounded without; the exact re-run when any flag latches.
     batch: (nodes, node_lens, num_nodes, roots, key_nibbles, key_lens)."""
-    args = (*batch[:3], digests, *batch[3:], max_value_len, batch[0].shape[1] + 6)
+    steps = batch[0].shape[1] + 6 if max_steps is None else max_steps
+    args = (*batch[:3], digests, *batch[3:], max_value_len, steps)
     out, values = mpt.walk_kernel_plain("bounded" if hints is None else "hinted",
                                         *args, hints=hints)
     if bool((out[:, 4] != 0).any()):
@@ -824,15 +1254,19 @@ def plain_table(pool, pool_hints=None, psegs=None):
     return table[..., :32], table[..., 32:]
 
 
-def plain_pooled(batch, pool, pool_hints, segs, psegs):
+def plain_pooled(batch, pool, pool_hints, segs=None, psegs=None, max_value_len=128,
+                 max_steps=None):
     """The pooled main path built from the plain versions only (plain keccak,
-    row gather, plain hinted walk with the exact re-run), on any device."""
+    row gather, plain hinted walk with the exact re-run), on any device. A
+    None max_steps resolves from the global node axis, as in the port."""
+    segs = segs or ((batch[0].shape[0], batch[0].shape[1]),)
+    steps = batch[0].shape[1] + 6 if max_steps is None else max_steps
     dig, hints = plain_table(pool, pool_hints, psegs)
     outs = []
     for o, (cnt, d) in zip(seg_offsets(segs), segs):
         sl = slice(o, o + cnt)
         seg = [batch[0][sl, :d], batch[1][sl, :d], *(x[sl] for x in batch[2:])]
-        outs.append(plain_walk(seg, dig[sl, :d], hints[sl, :d], 128))
+        outs.append(plain_walk(seg, dig[sl, :d], hints[sl, :d], max_value_len, steps))
     return tuple(torch.cat(p) for p in zip(*outs))
 
 

@@ -49,7 +49,7 @@ def test_keccak_kernel_matches_plain(dev):
                        tkeccak.keccak256(rows[:, :300], short))
 
 
-def _batch():
+def _entries():
     t = EthTrie()
     keys = [keccak256(b"card-%d" % i) for i in range(64)]
     for i, k in enumerate(keys):
@@ -67,7 +67,11 @@ def _batch():
     for i, k in enumerate(ikeys):
         inl.insert(k, rlp.int_to_min_bytes(i + 1))
     entries += [(inl.root_hash(), inl.get_proof(k), k) for k in ikeys[:6]]
-    return pack_proofs(entries, max_nodes=8, node_len=576)
+    return entries
+
+
+def _batch():
+    return pack_proofs(_entries(), max_nodes=8, node_len=576)
 
 
 @pytest.mark.parametrize("mode", ["hinted", "bounded", "exact"])
@@ -114,12 +118,52 @@ def test_walk_kernel_matches_plain_on_fuzzed_batch(dev, seed):
     hints = np.where(flip, rng.integers(0, 256, hints.shape, dtype=np.uint8), hints)
     hints = torch.from_numpy(hints).to(dev)
     args = (b[0], b[1], b[2], dig, b[3], b[4], b[5], 128, d + 6)
-    for mode in ("hinted", "bounded", "exact"):
+    for mode in mpt.WALK_MODES:
         got = mpt_cuda.walk_lanes(mode, *args, hints=hints)
         torch.cuda.synchronize()
         want = mpt.walk_kernel_plain(mode, *args, hints=hints)
         for g, w in zip(got, want):
             assert torch.equal(g, w), mode
+
+
+def test_hinted_variants_match_plain(dev):
+    """Every hinted mode (`hinted` and its variants `hinted4`, `hinted1`,
+    `ordered`, `pairskip`) on the batch with an unordered proof and a
+    long-form item in branch slot 2, on a node axis that is a multiple of 4
+    and on one that is not (the `hinted1` wrapper pads it), whole and as a
+    row slice (a depth segment's view): kernel == plain, and the flags of
+    `hinted4` and `ordered` differ from `hinted`'s where they should."""
+    entries = _entries()
+    long_slot = rlp.encode([b"", b"", b"\x5a" * 60] + [b""] * 14)
+    root0, proof0, key0 = entries[0]
+    entries += [(root0, proof0[::-1], key0),
+                (keccak256(long_slot), [long_slot], b"\x20" + b"\x00" * 31)]
+    for node_len in (573, 576):
+        _check_hinted_variants(dev, pack_proofs(entries, max_nodes=8, node_len=node_len))
+
+
+def _check_hinted_variants(dev, packed):
+    t = packed_to_tensors(packed, dev, pool=False)
+    b = [t[k] for k in BATCH_FIELDS]
+    dig = mpt.hash_nodes(b[0], b[1])
+    bb, d, n = packed.nodes.shape
+    hints = torch.from_numpy(host_item_offsets(packed.nodes.reshape(bb * d, n))
+                             .reshape(bb, d, 36)).to(dev)
+    for sl in (slice(0, bb), slice(1, bb)):
+        args = (b[0][sl], b[1][sl], b[2][sl], dig[sl], b[3][sl], b[4][sl], b[5][sl],
+                128, d + 6)
+        flags = {}
+        for mode in mpt.HINT_MODES:
+            got = mpt_cuda.walk_lanes(mode, *args, hints=hints[sl])
+            torch.cuda.synchronize()
+            want = mpt.walk_kernel_plain(mode, *args, hints=hints[sl])
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (mode, n)
+            flags[mode] = got[0][:, 4].cpu()
+        assert flags["hinted"][-1] == 1 and flags["hinted4"][-1] == 0
+        assert flags["ordered"][-2] == 1 and flags["hinted"][-2] == 0
+        for mode in ("hinted1", "pairskip"):
+            assert torch.equal(flags[mode], flags["hinted"])
 
 
 def test_keccak_raw_kernel_matches_plain_and_k1(dev):

@@ -1,6 +1,7 @@
-"""The port's own host modules (`oracle`, `witness.pack`, `native`) against
-the JAX package's, whose copies they are: identical packed arrays, pools,
-hints and segment schedules, identical digests, tries and proofs."""
+"""The port's own host modules (`oracle`, `witness.pack`, the block
+witness modules, `native`) against the JAX package's, whose copies they
+are: identical packed arrays, pools, hints and segment schedules, identical
+digests, encodings, tries and proofs."""
 
 import numpy as np
 import pytest
@@ -82,3 +83,64 @@ def test_oracle_keccak_rlp_and_trie_match_jax():
         oracle.verify_merkle_proof(ours.root_hash(), ours.get_proof(b"\xee" * 8), b"\xee" * 8)
     with pytest.raises(oracle.TrieError):
         oracle.verify_merkle_proof(ours.root_hash(), proof[:-1], keys[3])
+
+
+def test_block_host_copies_match_jax():
+    """The port's `witness.encoding`, `types`, `builders` and `fixtures`
+    give the JAX package's bytes, roots and proofs."""
+    from pathlib import Path
+
+    from zk_state_proofs_tpu.witness import builders as jbuilders
+    from zk_state_proofs_tpu.witness import encoding as jencoding
+    from zk_state_proofs_tpu.witness import fixtures as jfixtures
+    from zk_state_proofs_tpu.witness import types as jtypes
+    from zk_state_proofs_tpu_torch.witness import builders, encoding, fixtures, types
+
+    fx = fixtures.synthetic_block(num_txs=12, seed=4)
+    assert fx == jfixtures.synthetic_block(num_txs=12, seed=4)
+    block, receipts = fx["block"], fx["receipts"]
+    assert {encoding.tx_type(tx) for tx in block["transactions"]} >= {0, 2}
+    for tx in block["transactions"]:
+        assert encoding.encode_transaction(tx) == jencoding.encode_transaction(tx)
+    for r in receipts:
+        assert encoding.encode_receipt(r) == jencoding.encode_receipt(r)
+        for log in r["logs"]:
+            assert encoding.encode_log(log) == jencoding.encode_log(log)
+    path = Path(__file__).resolve().parent.parent / "fixtures" / "mainnet_headers.json"
+    headers = fixtures.load_fixture(path)
+    assert headers == jfixtures.load_fixture(path)
+    for name in ("genesis", "block1"):
+        assert encoding.encode_header(headers[name]) == jencoding.encode_header(headers[name])
+        assert encoding.block_hash(headers[name]).hex() == headers[name]["hash"][2:]
+    assert fixtures.ERC20_TRANSFER_TOPIC == jfixtures.ERC20_TRANSFER_TOPIC
+
+    pairs = [(builders.get_all_transaction_proof_inputs(block),
+              jbuilders.get_all_transaction_proof_inputs(block)),
+             (builders.get_all_receipt_proof_inputs(block, receipts),
+              jbuilders.get_all_receipt_proof_inputs(block, receipts)),
+             ([builders.get_transaction_proof_input(block, 3),
+               builders.get_receipt_proof_input(block, receipts, 5)],
+              [jbuilders.get_transaction_proof_input(block, 3),
+               jbuilders.get_receipt_proof_input(block, receipts, 5)])]
+    for ours, theirs in pairs:
+        assert len(ours) == len(theirs)
+        for a, b in zip(ours, theirs):
+            assert a.to_borsh() == b.to_borsh()
+            assert types.MerkleProofInput.from_borsh(b.to_borsh()) == a
+    assert builders.build_receipt_trie(receipts).root_hash() == \
+        jbuilders.build_receipt_trie(receipts).root_hash()
+    storage = dict(account_proof=[b"\x01" * 40], storage_proofs=[[b"\x02" * 33], []],
+                   root_hash=b"\x03" * 32, account_key=b"\x04" * 32,
+                   storage_keys=[b"\x05" * 32, b"\x06"], address_keccak=b"\x07" * 32)
+    raw = types.StorageProofInput(**storage).to_borsh()
+    assert raw == jtypes.StorageProofInput(**storage).to_borsh()
+    assert types.StorageProofInput.from_borsh(raw) == types.StorageProofInput(**storage)
+    bad = dict(block["transactions"][0])
+    bad.pop("nonce")
+    with pytest.raises(builders.WitnessError):
+        builders.build_transaction_trie([bad])
+    with pytest.raises(jbuilders.WitnessError):
+        jbuilders.build_transaction_trie([bad])
+    with pytest.raises(builders.WitnessError):
+        builders.get_receipt_proof_input(dict(block, receiptsRoot="0x" + "00" * 32),
+                                         receipts, 0)

@@ -171,8 +171,8 @@ def test_packed_to_tensors_roundtrip(headline_256):
 
 
 def test_import_loads_neither_jax_nor_cuda():
-    """Importing the port, and running the storage path on the CPU, loads
-    no JAX, no module of the JAX package and no CUDA."""
+    """Importing the port, and running the storage and block paths on the
+    CPU, loads no JAX, no module of the JAX package and no CUDA."""
     code = (
         "import sys, torch\n"
         "import zk_state_proofs_tpu_torch\n"
@@ -186,6 +186,14 @@ def test_import_loads_neither_jax_nor_cuda():
         "res = verify_storage_grouped(*w.pack(), w.slots, w.slot_accounts, device='cpu')\n"
         "assert (res.slot_status == 1).all() and (res.account_status == 1).all()\n"
         "assert [res.slot_value(i) for i in range(6)] == w.slot_values\n"
+        "from zk_state_proofs_tpu_torch.models import verify_block_receipts\n"
+        "from zk_state_proofs_tpu_torch.models import verify_block_transactions\n"
+        "from zk_state_proofs_tpu_torch.witness import synthetic_block\n"
+        "from zk_state_proofs_tpu_torch.witness_bridge import tx_geometry_block\n"
+        "fx = synthetic_block(num_txs=6, seed=2)\n"
+        "r, transfers = verify_block_receipts(fx['block'], fx['receipts'], device='cpu')\n"
+        "assert r.all_found and verify_block_transactions(tx_geometry_block(3),\n"
+        "                                                 device='cpu').all_found\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'zk_state_proofs_tpu' or m.startswith('zk_state_proofs_tpu.'))\n"
         "assert not bad, bad\n"

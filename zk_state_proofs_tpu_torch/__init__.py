@@ -1,8 +1,8 @@
 """zk_state_proofs_tpu_torch — the PyTorch / CUDA port of zk_state_proofs_tpu.
 
-The pooled account-proof and two-level storage verification paths of the JAX
-package, re-built on PyTorch with hand-written CUDA kernels for Hopper
-(sm_90a):
+The pooled account-proof, two-level storage and block (transaction and
+receipt trie, ERC20 extraction) verification paths of the JAX package,
+re-built on PyTorch with hand-written CUDA kernels for Hopper (sm_90a):
 
   ops/keccak.py      plain batched Keccak-256 (the CPU path and the reference
                      of kernels K1 and K3)
@@ -11,14 +11,17 @@ package, re-built on PyTorch with hand-written CUDA kernels for Hopper
   ops/rlp.py         RLP header/node decoding as indexed loads
   ops/mpt.py         plain walk (the CPU path and the reference of K2), pool
                      hashing, scatter, and the verify entry points
-  ops/mpt_cuda.py    K2: one-thread-per-proof fused MPT walk, modes `hinted`,
+  ops/mpt_cuda.py    K2: one-thread-per-proof fused MPT walk in all the TPU
+                     kernel's modes: `hinted` and its variants `hinted4`,
+                     `hinted1`, `ordered`, `pairskip` (`hint_mode`),
                      `bounded` and `exact` (csrc/mpt_walk.cu)
-  models/            verifier workloads (accounts, two-level storage) and the
-                     bucket-pinned BatchVerifier
+  models/            verifier workloads (accounts, two-level storage, block
+                     tx/receipt tries) and the bucket-pinned BatchVerifier
   witness_bridge.py  PackedProofs -> tensors, and the witness recipes
   oracle/, witness/, native.py
                      the port's own copies of the JAX package's host layers
-                     (pure-Python oracle, packer, C++ host runtime bindings)
+                     (pure-Python oracle, packer, tx/receipt encoders, block
+                     trie builders, fixtures, C++ host runtime bindings)
 
 The port imports nothing of the JAX package. Importing it loads neither JAX
 nor CUDA: kernels are built at their first launch, and dispatch follows the

@@ -1,7 +1,9 @@
-// Kernel K2: the fused MPT proof walk, modes `hinted`, `bounded` and `exact`.
+// Kernel K2: the fused MPT proof walk, in the seven modes of the TPU kernel:
+// `exact`, `bounded`, `hinted` and its variants `hinted4`, `hinted1`,
+// `ordered` and `pairskip`.
 //
-// Replaces zk_state_proofs_tpu/ops/mpt_pallas.py::_walk_kernel (modes
-// 'hinted', 'bounded' and 'exact'). The TPU kernel holds every per-proof scalar as an
+// Replaces zk_state_proofs_tpu/ops/mpt_pallas.py::_walk_kernel (every
+// mode). The TPU kernel holds every per-proof scalar as an
 // (8, 128) lane tile and, lacking a vector gather, reads node bytes through
 // masked reduces over the node's word axis and binary shift cascades. Here
 // one thread walks one proof and reads its bytes with plain indexed loads
@@ -36,6 +38,23 @@
 //    byte N4 - 1 of a node whose list end fits its length (only possible
 //    with node_lens > N), where the TPU kernel's unlatched result can
 //    differ from `exact`;
+//  - `hinted4` is `hinted` with every item header decoded from four bytes
+//    (head_at), so branch slots 2..15 take no long-form latch; its flag
+//    differs from `hinted`'s only on a present long-form item there;
+//  - `hinted1` is `hinted` with the node read as aligned 32-bit words
+//    (N % 4 == 0, rows 4-byte aligned: the wrapper pads): each item's
+//    header comes from one or two words through a two-word cache, so on a
+//    monotonic hint chain every consulted word is loaded once (the TPU's
+//    single pass over the node's words feeding all 17 headers). Same flag
+//    and words as `hinted`;
+//  - `ordered` reads, at step s, the node at row min(s, d - 1) and latches
+//    the flag on a live proof whose node_idx differs (an unordered pack, a
+//    root not at row 0, a step after an inline child); the rest is
+//    `hinted`'s decode and merge, the digest search included;
+//  - `pairskip` gates the extension/leaf block on a warp vote: it runs for
+//    every thread of the warp's live threads when any of them sits on a
+//    2-item node (the TPU's tile-wide pl.when(any_pair)). Same flag and
+//    words as `hinted`: a thread's own vote is in the vote;
 //  - the value is copied out at the end, byte-aligned: value[j] =
 //    node[vnode][clip(vstart) + j] for j < vlen (0 past the buffer).
 //
@@ -45,8 +64,10 @@
 // (uncoalesced). The hinted mode breaks the chain: its 17 header fetches
 // are independent. The bounded mode's windows, which cut the TPU's masked
 // reduces, buy nothing here (a load costs the same at any offset); it is
-// kept for its latch, which must equal the TPU kernel's. The first
-// version keeps that simple design (no shared-memory staging, no
+// kept for its latch, which must equal the TPU kernel's. The value copy is
+// a per-thread byte loop, uncoalesced too: at transaction and receipt
+// geometry (about 2 KB leaves) it moves up to max_value_len bytes a proof.
+// The first version keeps that simple design (no shared-memory staging, no
 // cooperative warps); a later tuning pass can stage the slab in shared
 // memory or give a proof to a group of threads.
 
@@ -85,10 +106,16 @@ struct WalkArgs {
   int32_t* out;     // [B, 6]
   uint8_t* values;  // [B, max_value_len]
   int batch, d, n, kn, max_steps, max_value_len;
-  int mode;  // 0 exact, 1 hinted, 2 bounded
+  int mode;  // a Mode
 };
 
 namespace {
+
+// WalkArgs.mode; must match _MODE_CODE in ops/mpt_cuda.py
+enum Mode {
+  EXACT = 0, HINTED = 1, BOUNDED = 2, HINTED4 = 3, HINTED1 = 4, ORDERED = 5,
+  PAIRSKIP = 6
+};
 
 struct Head {
   int off, len;
@@ -249,15 +276,60 @@ __device__ Sel decode_bounded(const uint8_t* row, int n, int n4, int start,
   return s;
 }
 
-// `hinted`: every item fetched at its hint, the chain law checked for all
-__device__ Sel decode_hinted(const uint8_t* row, int n, int n4,
-                             const uint8_t* hrow, int blen, int child,
-                             bool& ovf) {
+// byte fetches of a node buffer (every mode but `hinted1`)
+struct ByteFetch {
+  const uint8_t* row;
+  int n, n4;
+  __device__ Head head(int pos) const { return head_at(row, n, n4, pos); }
+  __device__ int first(int pos) const {
+    return byte_at(row, n, clampi(pos, 0, n4 - 1));
+  }
+};
+
+// `hinted1`: aligned 32-bit word loads of a node buffer of nw words
+// (n4 = 4 * nw bytes). The last two words loaded are kept, so fetches at
+// non-decreasing positions load each word once.
+struct WordFetch {
+  const uint32_t* w;
+  int nw;
+  int i0, i1;
+  uint32_t v0, v1;
+  __device__ uint32_t word(int j) {
+    if (j == i1) return v1;
+    if (j == i0) return v0;
+    const uint32_t v = j < nw ? w[j] : 0u;
+    i0 = i1;
+    v0 = v1;
+    i1 = j;
+    v1 = v;
+    return v;
+  }
+  __device__ Head head(int pos) {
+    const int pc = clampi(pos, 0, 4 * nw - 1);
+    const int r = pc & 3;
+    const uint32_t lo = word(pc >> 2);
+    const uint32_t hi = r ? word((pc >> 2) + 1) : 0u;
+    // bytes r..r+3 of the two little-endian words, in memory order
+    const uint32_t x = (uint32_t)((((uint64_t)hi << 32) | lo) >> (8 * r));
+    return head_fields(x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, x >> 24);
+  }
+  __device__ int first(int pos) {
+    const int pc = clampi(pos, 0, 4 * nw - 1);
+    return (word(pc >> 2) >> (8 * (pc & 3))) & 0xFF;
+  }
+};
+
+// `hinted` and its variants: every item fetched at its hint, the chain law
+// checked for all. short_slots: branch slots 2..15 decoded from their
+// first byte, with the long-form latch (`hinted4` clears it).
+template <class Fetch>
+__device__ Sel decode_hinted(Fetch& f, const uint8_t* hrow, int blen,
+                             int child, bool short_slots, bool& ovf) {
   Sel s = {};
   int h[18];
 #pragma unroll
   for (int i = 0; i < 18; ++i) h[i] = (hrow[2 * i] << 8) | hrow[2 * i + 1];
-  const Head hd = head_at(row, n, n4, 0);
+  const Head hd = f.head(0);
   const int ps = hd.off;
   const int end = ps + hd.len;
   bool chain_ok = h[0] == ps;
@@ -270,9 +342,9 @@ __device__ Sel decode_hinted(const uint8_t* row, int n, int n4,
     if (present && hi > 10 + 35 * i) latch = true;
     int ipo, ipl;
     bool ilist, ok;
-    if (i >= 2 && i <= 15) {
+    if (short_slots && i >= 2 && i <= 15) {
       // branch slots 2..15: the first byte decides a short-form header
-      const int b0 = byte_at(row, n, clampi(hi, 0, n4 - 1));
+      const int b0 = f.first(hi);
       const bool single = b0 < 0x80;
       const bool short_str = b0 >= 0x80 && b0 <= 0xB7;
       const bool short_list = b0 >= 0xC0 && b0 <= 0xF7;
@@ -283,7 +355,7 @@ __device__ Sel decode_hinted(const uint8_t* row, int n, int n4,
       ilist = b0 >= 0xC0;
       ok = !longf;
     } else {
-      const Head it = head_at(row, n, n4, hi);
+      const Head it = f.head(hi);
       ipo = it.off;
       ipl = it.len;
       ilist = it.list;
@@ -358,7 +430,8 @@ __global__ void mpt_walk_kernel(const WalkArgs a) {
   const uint8_t* dig = a.digests + b * a.dig_s0;
   const uint8_t* root = a.roots + b * a.roots_s0;
   const uint8_t* knib = a.knib + b * a.knib_s0;
-  const uint8_t* hints = a.mode == 1 ? a.hints + b * a.hints_s0 : nullptr;
+  const bool hinted = a.mode == HINTED || a.mode >= HINTED4;
+  const uint8_t* hints = hinted ? a.hints + b * a.hints_s0 : nullptr;
   const int nnum = a.num_nodes[b];
   const int klen = a.key_lens[b];
   const int dlim = min(a.d, max(nnum, 0));
@@ -375,15 +448,29 @@ __global__ void mpt_walk_kernel(const WalkArgs a) {
   bool ovf = false;
 
   for (int step = 0; step < a.max_steps && status == RUNNING; ++step) {
-    const uint8_t* row = nodes + node_idx * a.nodes_s1;
-    const int blen = lens[node_idx * a.lens_s1];
+    // the node row this step reads: node_idx, or in `ordered` the step's
+    // own row, with a latch where the two differ
+    int ri = node_idx;
+    if (a.mode == ORDERED) {
+      ri = min(step, a.d - 1);
+      if (node_idx != ri) ovf = true;
+    }
+    const uint8_t* row = nodes + ri * a.nodes_s1;
+    const int blen = lens[ri * a.lens_s1];
     const int c_nib = (key_pos >= 0 && key_pos < a.kn) ? (int)knib[key_pos] : 0;
 
     Sel s;
-    if (a.mode == 1) {
+    if (hinted) {
       if (off != 0) ovf = true;  // an inline child: node-level hints cannot describe it
-      s = decode_hinted(row, n, n4, hints + node_idx * a.hints_s1, blen, c_nib, ovf);
-    } else if (a.mode == 2) {
+      const uint8_t* hrow = hints + ri * a.hints_s1;
+      if (a.mode == HINTED1) {
+        WordFetch f = {reinterpret_cast<const uint32_t*>(row), n4 / 4, -1, -1, 0u, 0u};
+        s = decode_hinted(f, hrow, blen, c_nib, true, ovf);
+      } else {
+        ByteFetch f = {row, n, n4};
+        s = decode_hinted(f, hrow, blen, c_nib, a.mode != HINTED4, ovf);
+      }
+    } else if (a.mode == BOUNDED) {
       s = decode_bounded(row, n, n4, off, blen, c_nib, ovf);
     } else {
       s = decode_exact(row, n, n4, off, blen, c_nib);
@@ -400,7 +487,12 @@ __global__ void mpt_walk_kernel(const WalkArgs a) {
     const bool child_empty = take_child && !s.c_list && s.c_len == 0;
 
     Pair p = {false, true, false, 0};  // read only where is_pair
-    if (is_pair) {
+    // `pairskip`: the pair block runs for all of the warp's live threads
+    // when any of them is on a pair node (threads that have left the step
+    // loop are out of the vote)
+    const bool run_pair = a.mode == PAIRSKIP ? __any_sync(__activemask(), is_pair)
+                                             : is_pair;
+    if (run_pair) {
       p = step_pair(row, n, n4, knib, a.kn, klen, key_pos, s.i0_pay, s.i0_len,
                     s.i0_list);
     }

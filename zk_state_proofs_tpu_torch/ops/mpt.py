@@ -7,9 +7,10 @@ Verification is phase-split as in the JAX package:
      (a row gather — the JAX package's one-hot bf16 matmul was a TPU
      workaround; bytes never pass through a float matmul here, where TF32
      would corrupt them);
-  3. walk every proof (kernel K2, `mpt_cuda`): `hinted` mode with pack-time
-     hints, `bounded` mode without them, and an `exact` re-run of the batch
-     when any overflow flag latches;
+  3. walk every proof (kernel K2, `mpt_cuda`): a hinted mode with pack-time
+     hints (`hinted` unless `hint_mode` names another), `bounded` mode
+     without them, and an `exact` re-run of the batch when any overflow
+     flag latches;
   4. extract the values (inside K2 on the card).
 
 This module holds the plain PyTorch walk — `walk_kernel_plain`, the plain
@@ -50,7 +51,19 @@ REASON_NAMES = {
     R_TRUNCATED: "truncated",
 }
 
-WALK_MODES = ("hinted", "bounded", "exact")
+# the walk's modes: the hinted family (pack-time hints; `hint_mode`), then
+# the two serial decodes
+HINT_MODES = ("hinted", "hinted4", "hinted1", "ordered", "pairskip")
+WALK_MODES = HINT_MODES + ("bounded", "exact")
+
+
+def check_hint_mode(hint_mode: str | None) -> str:
+    """The hinted mode a walk with hints runs in: None is 'hinted';
+    anything outside HINT_MODES raises ValueError."""
+    mode = "hinted" if hint_mode is None else hint_mode
+    if mode not in HINT_MODES:
+        raise ValueError(f"hint_mode {hint_mode!r} not in {HINT_MODES}")
+    return mode
 
 
 def _step_pair(buf, key_nibbles, key_lens, key_pos, p0s, p0l, p0list):
@@ -190,7 +203,7 @@ def walk_kernel_plain(mode: str, nodes, node_lens, num_nodes, digests, roots,
 
     nodes u8 [B, D, N], node_lens i32 [B, D], num_nodes i32 [B], digests u8
     [B, D, 32], roots u8 [B, 32], key_nibbles u8 [B, K], key_lens i32 [B],
-    hints u8 [B, D, 36] ('hinted' only).
+    hints u8 [B, D, 36] (the HINT_MODES only).
 
     Returns (out i32 [B, 6], values u8 [B, max_value_len]); out's columns
     are the TPU kernel's six words: status (RUNNING -> INVALID), vnode,
@@ -201,7 +214,13 @@ def walk_kernel_plain(mode: str, nodes, node_lens, num_nodes, digests, roots,
     `zk_state_proofs_tpu.ops.mpt.walk_batch`. 'hinted' decodes at the hints
     (rlp.decode_node_hinted) and latches the overflow flag on a live proof
     whenever its hints are not proven or it steps into an inline child
-    (off != 0). 'bounded' decodes serially through bounded windows
+    (off != 0). Its variants: 'hinted4' decodes branch slots 2..15 from
+    four header bytes, without their long-form latch; 'ordered' reads, at
+    step s, the node row min(s, D - 1) and latches the flag on a live proof
+    whose node_idx differs; 'hinted1' and 'pairskip' compute what 'hinted'
+    computes (their kernels differ only in how they read the node and gate
+    the pair block) and share its plain decode. 'bounded' decodes
+    serially through bounded windows
     (rlp.decode_node_bounded) and latches the flag on a live proof whose
     item lies past its window. Proofs whose flag stays 0 get the exact
     results; the caller re-runs the rest in 'exact'.
@@ -215,8 +234,9 @@ def walk_kernel_plain(mode: str, nodes, node_lens, num_nodes, digests, roots,
     the port latches and the TPU kernel does not."""
     if mode not in WALK_MODES:
         raise ValueError(f"walk mode {mode!r} not in {WALK_MODES}")
-    if mode == "hinted" and hints is None:
-        raise ValueError("hinted mode needs hints")
+    hinted = mode in HINT_MODES
+    if hinted and hints is None:
+        raise ValueError(f"{mode} mode needs hints")
     b, d, _ = nodes.shape
     ar = torch.arange(b, device=nodes.device)
     num_nodes = num_nodes.to(torch.int64)
@@ -226,19 +246,24 @@ def walk_kernel_plain(mode: str, nodes, node_lens, num_nodes, digests, roots,
     kn = key_nibbles.shape[1]
     knib = key_nibbles.to(torch.int64)
 
-    for _ in range(max_steps):
+    for step in range(max_steps):
         node_idx, off, key_pos, status = carry[:4]
         live = status == RUNNING
         if not bool(live.any()):  # later steps are no-ops
             break
-        buf = nodes[ar, node_idx]
-        blen = node_lens[ar, node_idx].to(torch.int64)
+        rows = node_idx  # the node row this step reads
+        if mode == "ordered":
+            rows = torch.full_like(node_idx, min(step, d - 1))
+            ovf = ovf | (live & (node_idx != rows))
+        buf = nodes[ar, rows]
+        blen = node_lens[ar, rows].to(torch.int64)
         in_key = (key_pos >= 0) & (key_pos < kn)
         c_nib = torch.where(in_key, knib[ar, key_pos.clamp(0, kn - 1)], 0)
-        if mode == "hinted":
-            hrow = hints[ar, node_idx].to(torch.int64)
+        if hinted:
+            hrow = hints[ar, rows].to(torch.int64)
             h = (hrow[:, 0::2] << 8) | hrow[:, 1::2]
-            items = decode_node_hinted(buf, h, blen, c_nib)
+            items = decode_node_hinted(buf, h, blen, c_nib,
+                                       short_slots=mode != "hinted4")
             ovf = ovf | (live & ((off != 0) | items["hint_ovf"]))
         elif mode == "bounded":
             items = decode_node_bounded(buf, off, blen, c_nib)
@@ -331,6 +356,7 @@ def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
                          key_lens, pool_nodes, pool_lens, pool_idx,
                          pool_hints=None, max_value_len: int = 128,
                          max_steps: int | None = None, hinted: bool = True,
+                         hint_mode: str | None = None,
                          depth_segments: tuple | None = None,
                          pool_segments: tuple | None = None):
     """Pooled batched verification — the main path. Every tensor lies on
@@ -339,10 +365,13 @@ def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
     value_lens i32 [B]).
 
     pool_hints (u8 [U, 36], PackedProofs.pool_hints()) with hinted=True
-    walks in K2's `hinted` mode; without them (the device hint pass
-    `ops.rlp.item_offsets` is not ported) or with hinted=False the walk is
-    `bounded`, as in the JAX package. Either is re-run in `exact` when any
-    proof latches the overflow flag. Results are identical in every case.
+    walks in K2's hinted mode `hint_mode` (None is 'hinted'; HINT_MODES;
+    the JAX package's argument of that name, which replaces its
+    ZKP_WALK_HINT_MODE and ZKP_WALK_HINT4 environment switches); without
+    them (the device hint pass `ops.rlp.item_offsets` is not ported) or with
+    hinted=False the walk is `bounded`, as in the JAX package. Either is
+    re-run in `exact` when any proof latches the overflow flag. Results are
+    identical in every case. An unknown hint_mode raises ValueError.
 
     depth_segments: ((count, d), ...) covering the batch in order
     (PackedProofs.depth_segments()) — one walk per contiguous segment over
@@ -353,6 +382,7 @@ def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
     pool_segments: ((row_count, width), ...) covering the pool in order
     (PackedProofs.pool_block_segments()) — one keccak launch per segment
     at its trimmed width."""
+    hint_mode = check_hint_mode(hint_mode)
     use_hints = pool_hints if hinted else None
     table = hash_nodes_pooled(pool_nodes, pool_lens, pool_idx, use_hints,
                               pool_segments)
@@ -360,8 +390,9 @@ def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
     args = (nodes, node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
             max_value_len, max_steps)
     if depth_segments is None:
-        return mpt_cuda.walk_batch_cuda(*args, hints=hints)
-    return mpt_cuda.walk_batch_cuda_segmented(depth_segments, *args, hints=hints)
+        return mpt_cuda.walk_batch_cuda(*args, hints=hints, hint_mode=hint_mode)
+    return mpt_cuda.walk_batch_cuda_segmented(depth_segments, *args, hints=hints,
+                                              hint_mode=hint_mode)
 
 
 def verify_proofs(nodes, node_lens, num_nodes, roots, key_nibbles, key_lens,

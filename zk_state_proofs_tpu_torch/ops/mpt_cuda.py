@@ -1,11 +1,11 @@
 """Kernel K2: the fused MPT walk on the card (csrc/mpt_walk.cu).
 
-Replaces `zk_state_proofs_tpu.ops.mpt_pallas._walk_kernel` in its modes
-`hinted` (walks with pack-time hints: the account level), `bounded` (walks
-without hints: `verify_proofs`, `verify_proofs_diagnose` and the storage
-slot level) and `exact` (the fallback of both). The TPU kernel's modes
-`hinted4`, `hinted1`, `ordered` and `pairskip` are layout variants of
-`hinted` with identical results, not ported yet.
+Replaces `zk_state_proofs_tpu.ops.mpt_pallas._walk_kernel` in all its
+modes: `hinted` (walks with pack-time hints: the account level, the block
+tries) and its variants `hinted4`, `hinted1`, `ordered` and `pairskip`
+(chosen with `hint_mode`), `bounded` (walks without hints:
+`verify_proofs`, `verify_proofs_diagnose` and the storage slot level) and
+`exact` (the fallback of all of them).
 
 `walk_lanes` is the kernel's wrapper (a CPU tensor takes the plain version,
 `ops.mpt.walk_kernel_plain`); `walk_batch_cuda` and
@@ -24,8 +24,9 @@ import torch
 from . import mpt
 from ._build import check_launch, load_library
 
-LAUNCHES = {"hinted": 0, "bounded": 0, "exact": 0}
-_MODE_CODE = {"exact": 0, "hinted": 1, "bounded": 2}  # WalkArgs.mode
+_MODE_CODE = {"exact": 0, "hinted": 1, "bounded": 2, "hinted4": 3,  # WalkArgs.mode
+              "hinted1": 4, "ordered": 5, "pairskip": 6}
+LAUNCHES = dict.fromkeys(_MODE_CODE, 0)
 
 
 class WalkArgs(ctypes.Structure):
@@ -65,11 +66,25 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous along its last dim")
 
 
+def _word_aligned(nodes):
+    """nodes as `hinted1`'s word loads need them: N a multiple of 4 and
+    every row 4-byte aligned; else a copy zero-padded to N4 (as
+    `walk_batch_pallas` pads). Bytes past N read 0 either way, so the
+    results do not change."""
+    b, d, n = nodes.shape
+    if (n % 4 == 0 and nodes.stride(0) % 4 == 0 and nodes.stride(1) % 4 == 0
+            and nodes.data_ptr() % 4 == 0):
+        return nodes
+    out = torch.zeros((b, d, -(-n // 4) * 4), dtype=nodes.dtype, device=nodes.device)
+    out[..., :n] = nodes
+    return out
+
+
 def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
                key_nibbles, key_lens, max_value_len: int, max_steps: int,
                hints=None):
-    """One K2 launch: every proof walked in `mode` ('hinted', 'bounded' or
-    'exact'), without a fallback. Inputs and outputs as
+    """One K2 launch: every proof walked in `mode` (one of
+    `ops.mpt.WALK_MODES`), without a fallback. Inputs and outputs as
     `ops.mpt.walk_kernel_plain`: (out i32 [B, 6], values u8 [B, mvl])."""
     if nodes.device.type == "cpu":
         return mpt.walk_kernel_plain(mode, nodes, node_lens, num_nodes, digests,
@@ -79,9 +94,9 @@ def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
         raise ValueError(f"walk_lanes: unsupported device {nodes.device}")
     if mode not in mpt.WALK_MODES:
         raise ValueError(f"walk mode {mode!r} not in {mpt.WALK_MODES}")
-    hinted = mode == "hinted"
+    hinted = mode in mpt.HINT_MODES
     if hinted and hints is None:
-        raise ValueError("hinted mode needs hints")
+        raise ValueError(f"{mode} mode needs hints")
     if nodes.dtype != torch.uint8 or nodes.ndim != 3:
         raise ValueError(f"nodes must be u8 [B, D, N], got {nodes.dtype} {tuple(nodes.shape)}")
     b, d, n = nodes.shape
@@ -98,6 +113,9 @@ def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
         _check("hints", hints, torch.uint8, (b, d, 36), dev)
     if n < 1 or kn < 1 or max_value_len < 0 or max_steps < 0:
         raise ValueError("walk_lanes: empty node or key axis, or negative sizes")
+    if mode == "hinted1":
+        nodes = _word_aligned(nodes)
+        n = nodes.shape[2]
     out = torch.empty((b, 6), dtype=torch.int32, device=dev)
     values = torch.empty((b, max_value_len), dtype=torch.uint8, device=dev)
     if b == 0:
@@ -127,20 +145,23 @@ def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
 def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
                     key_lens, max_value_len: int, max_steps: int | None = None,
                     with_reasons: bool = False, hints=None,
-                    with_overflow: bool = False):
+                    with_overflow: bool = False, hint_mode: str | None = None):
     """The walk of the verify entry points (port of `walk_batch_pallas`).
     Returns (status i32 [B], values u8 [B, max_value_len], value_lens i32
     [B]); with_reasons appends the INVALID reason, with_overflow the
     per-proof overflow flag of the first (hinted or bounded) walk.
 
-    hints (u8 [B, D, 36]) select `hinted` mode, no hints `bounded` mode.
-    If any proof latches the overflow flag (wrong hints, an inline-child
-    step in hinted mode, an item past its bound), the whole batch is
-    walked again in `exact`, so results equal `ops.mpt.walk_batch` on
-    every input. Deciding that reads one flag back to the host."""
+    hints (u8 [B, D, 36]) select the hinted mode `hint_mode` (None is
+    'hinted'; one of `ops.mpt.HINT_MODES`), no hints `bounded` mode. If any
+    proof latches the overflow flag (wrong hints, an inline-child step in a
+    hinted mode, an item past its bound, an out-of-order node in
+    'ordered'), the whole batch is walked again in `exact`, so results
+    equal `ops.mpt.walk_batch` on every input. Deciding that reads one flag
+    back to the host."""
+    hint_mode = mpt.check_hint_mode(hint_mode)
     if max_steps is None:
         max_steps = nodes.shape[1] + 6
-    mode = "bounded" if hints is None else "hinted"
+    mode = "bounded" if hints is None else hint_mode
     args = (nodes, node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
             max_value_len, max_steps)
     out, values = walk_lanes(mode, *args, hints=hints)
@@ -159,11 +180,11 @@ def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
 def walk_batch_cuda_segmented(depth_segments, nodes, node_lens, num_nodes,
                               digests, roots, key_nibbles, key_lens,
                               max_value_len: int, max_steps: int | None = None,
-                              hints=None):
+                              hints=None, hint_mode: str | None = None):
     """One walk_batch_cuda call per contiguous depth segment ((count, d),
     ...) over the segment's first d node rows. A None max_steps resolves
     once, from the global node axis, so truncation matches the unsegmented
-    call."""
+    call. In 'ordered' mode each segment's step rows clip to its own d."""
     if max_steps is None:
         max_steps = nodes.shape[1] + 6
     outs, off = [], 0
@@ -173,7 +194,8 @@ def walk_batch_cuda_segmented(depth_segments, nodes, node_lens, num_nodes,
             nodes[sl, :dseg], node_lens[sl, :dseg], num_nodes[sl],
             digests[sl, :dseg], roots[sl], key_nibbles[sl], key_lens[sl],
             max_value_len, max_steps,
-            hints=None if hints is None else hints[sl, :dseg]))
+            hints=None if hints is None else hints[sl, :dseg],
+            hint_mode=hint_mode))
         off += cnt
     if off != nodes.shape[0]:
         raise ValueError(

@@ -205,7 +205,7 @@ def decode_node_bounded(buf, start, buf_len, child_idx):
     return sel
 
 
-def decode_node_hinted(buf, h, buf_len, child_idx):
+def decode_node_hinted(buf, h, buf_len, child_idx, short_slots: bool = True):
     """Parallel decode at offset hints — the walk's `hinted` mode
     (`zk_state_proofs_tpu/ops/mpt_pallas.py:351-539`).
 
@@ -213,13 +213,16 @@ def decode_node_hinted(buf, h, buf_len, child_idx):
     the node list, then the boundary after each item; `pool_hints` rows).
     Every item header is fetched at its hinted position at once, and the
     chain law h[i+1] == h[i] + head_i + payload_i (h[i+1] == h[i] past the
-    list end) is checked for all items together. Branch slots 2..15 are
-    decoded from their first byte alone (an honest trie holds only
-    short-form items there). The node header is read at offset 0.
+    list end) is checked for all items together. With short_slots, branch
+    slots 2..15 are decoded from their first byte alone (an honest trie
+    holds only short-form items there); without it (the walk's `hinted4`
+    mode) every item is decoded from four header bytes. The node header is
+    read at offset 0.
 
     Returns decode_node_select's dict plus `hint_ovf` [B]: the hints are
     not proven (a chain-law break, a present item past the live-window
-    bound 10 + 35*i, or a long-form header in slots 2..15). The caller
+    bound 10 + 35*i, or, with short_slots, a long-form header in slots
+    2..15). The caller
     latches it and re-runs the exact decode; the other fields are then
     meaningless. Where hint_ovf is false they equal the exact decode's."""
     h = h.to(torch.int64)
@@ -237,7 +240,8 @@ def decode_node_hinted(buf, h, buf_len, child_idx):
     short_list = (b0 >= 0xC0) & (b0 <= 0xF7)
     longf = ~single & ~short_str & ~short_list
     slot = torch.zeros(MAX_ITEMS, dtype=torch.bool, device=buf.device)
-    slot[list(_SHORT_SLOTS)] = True
+    if short_slots:
+        slot[list(_SHORT_SLOTS)] = True
     ipo = torch.where(slot, torch.where(single, 0, 1), ipo)
     ipl = torch.where(slot, torch.where(single, 1, torch.where(short_str, b0 - 0x80, b0 - 0xC0)), ipl)
     ilist = torch.where(slot, b0 >= 0xC0, ilist)

@@ -1,4 +1,4 @@
-"""Throughput meter and a CUDA-event timer."""
+"""Throughput meter, CUDA-event timers and a torch.profiler summary."""
 
 from __future__ import annotations
 
@@ -52,6 +52,37 @@ def cuda_timer(fn, iters: int, warmup: int = 2) -> float:
         fn(i)
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def queued_timer(fn, iters: int, warmup: int = 2, spin_cycles: int = 200_000_000):
+    """Mean device milliseconds per call of `fn(i)` over `iters` calls,
+    with CUDA events around calls that are all queued behind a spin kernel
+    of `spin_cycles` clock cycles (about 0.1 s), so the host's launch cost
+    between calls does not count: the device time of the calls, with the
+    card's own gaps between kernels. `fn` must not synchronise. Returns
+    None where queueing the calls took longer than half the spin (the card
+    may have waited on the host). Raises without a CUDA device."""
+    import time
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("queued_timer needs a CUDA device")
+    for i in range(warmup):
+        fn(-1 - i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    stop.record()
+    queued_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    min_spin_s = spin_cycles / 2.0e9  # the SM clock is below 2 GHz
+    if queued_s > min_spin_s / 2:
+        return None
     return start.elapsed_time(stop) / iters
 
 

@@ -1,5 +1,6 @@
 """PackedProofs -> torch tensors, with the JAX arrays' dtypes and layouts,
-and the witness recipes the port is driven with.
+and the witness recipes the port is driven with (the headline accounts,
+the grouped-storage world, the transaction-trie geometry batch).
 
 The port's state is the packed witness. `packed_to_tensors` moves the numpy
 arrays of a `witness.PackedProofs` onto `device` without changing dtype or
@@ -9,6 +10,7 @@ packages compute on the same bytes.
 
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
 
 import numpy as np
@@ -16,6 +18,8 @@ import torch
 
 from . import native
 from .oracle import EthTrie, keccak256, rlp
+from .witness.builders import build_transaction_trie, get_all_transaction_proof_inputs
+from .witness.encoding import encode_transaction
 from .witness.pack import PackedProofs, pack_proofs
 
 
@@ -161,3 +165,54 @@ def storage_world(n_accounts: int = 512, slots_per: int = 8,
         slot_values=values,
         account_leaves=leaves,
     )
+
+
+def tx_geometry_block(n_txs: int = 256, seed: int = 11) -> dict:
+    """The transaction-trie block of the JAX package's bench_configs.py
+    (`_tx_geometry_batch`, :79-98; quick=False is 256 txs): EIP-1559
+    transactions with 1400-1960 B of random calldata, so the leaf nodes
+    are about 2 KB. Returns {"transactions": [...], "transactionsRoot":
+    hex}, the block dict of `models.verify_block_transactions`."""
+    rng = random.Random(seed)
+    txs = []
+    for i in range(n_txs):
+        data = bytes(rng.randrange(256) for _ in range(rng.randrange(1400, 1960)))
+        txs.append({
+            "type": "0x2", "chainId": "0x1", "nonce": hex(i),
+            "maxPriorityFeePerGas": "0x3b9aca00",
+            "maxFeePerGas": "0x2540be400", "gas": "0x7a120",
+            "to": "0x" + "%040x" % rng.getrandbits(160),
+            "value": hex(rng.getrandbits(48)),
+            "input": "0x" + data.hex(), "accessList": [],
+            "yParity": hex(i & 1),
+            "r": "0x" + "%064x" % rng.getrandbits(255),
+            "s": "0x" + "%064x" % rng.getrandbits(255),
+        })
+    root = build_transaction_trie(txs).root_hash()
+    return {"transactions": txs, "transactionsRoot": "0x" + root.hex()}
+
+
+@dataclass
+class TxGeometryBatch:
+    """A pooled batch at transaction-trie geometry and how to verify it."""
+
+    packed: PackedProofs
+    values: list         # the expected value of each proof: its encoded tx
+    max_value_len: int   # the longest encoded tx, rounded up to 128
+    max_steps: int       # the node axis + 2
+
+
+def tx_geometry_batch(block: dict, total: int = 4096) -> TxGeometryBatch:
+    """The batch recipe of bench_configs.py `_tx_geometry_batch` (:99-122)
+    over a `tx_geometry_block`: `total` proofs, proof i of tx i % n_txs,
+    packed at node_len = the largest node + 4, rounded up to 4; values
+    read back at full width."""
+    txs = block["transactions"]
+    inputs = get_all_transaction_proof_inputs(block)
+    entries = [inputs[i % len(inputs)].as_entry() for i in range(total)]
+    packed = pack_proofs(entries, node_len=_bucket_len(entries))
+    encoded = [encode_transaction(tx) for tx in txs]
+    return TxGeometryBatch(
+        packed=packed, values=[encoded[i % len(txs)] for i in range(total)],
+        max_value_len=-(-max(len(e) for e in encoded) // 128) * 128,
+        max_steps=packed.nodes.shape[1] + 2)
