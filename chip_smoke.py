@@ -36,7 +36,8 @@ Phases, each printing a line:
      proof FOUND with the oracle's leaf; results equal the plain path on the
      card; K1, hinted and exact launched by the path;
   6. timings with CUDA events, kernel path against plain path (the pooled
-     verify, K1, and K2 in every hinted mode and exact, on the headline);
+     verify, K1, and K2 in every hinted mode and exact, on the headline),
+     and a torch.profiler breakdown of the headline pooled verify;
   7. K2 in mode bounded against its plain version: the full-width slot
      batch, crafted over-bound nodes (latch, then the exact re-run), a trie
      with inline children (served without a latch), the adversarial batch;
@@ -65,17 +66,31 @@ Phases, each printing a line:
  13. timings: the transaction-geometry pooled verify (kernel against plain
      path), a device-time A/B of the five hinted modes on the headline and
      transaction-geometry batches, K1 on the transaction-geometry pool, and
-     the share of K2's value copy at that geometry.
+     the share of K2's value copy at that geometry;
+ 14. A/B of K1 and K2 against the one-thread kernels that came before them
+     (a thread per message, a thread per proof), on one card, in turns
+     (old, new, new, old), device time from queued CUDA events: K2 in all
+     seven modes on the headline segments, bounded and exact on the slot
+     batch, hinted at transaction geometry with and without the value copy,
+     K1 on the two headline pool segments and the transaction pool; each
+     batch's results from the two kernels equal bit for bit. Printed as
+     lines and as one JSON object {"ab": [...]}; before them, K2's dynamic
+     shared memory and staging on the headline, slot and transaction
+     batches.
 
-Any failed check exits non-zero. The next-to-last line is a JSON object of
-the kernels; the last line is {"ok": true, "device": {...}}. Uses no JAX and
-nothing of the JAX package.
+K1 is a warp per message and K2 a warp per proof over a shared-memory slab
+(csrc/keccak.cu, csrc/mpt_walk.cu); the build phase prints ptxas's
+registers and spills (and static shared memory) for each kernel. Any failed check exits
+non-zero. The next-to-last line is a JSON object of the kernels; the last
+line is {"ok": true, "device": {...}}. Uses no JAX and nothing of the JAX
+package.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -200,9 +215,14 @@ def main() -> None:
     kl = load_library()
     log(f"[2 build] kernels built and loaded in {time.time() - t0:.2f} s "
         f"(nvcc {kl.build_seconds:.2f} s) -> {os.path.relpath(kl.path, repo)}")
+    kernel = "?"
     for line in kl.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[2 build] ptxas: {line.strip()}")
+        if "Compiling entry function" in line:  # mangled: ...20mpt_walk_warp_kernelILi32E...
+            found = re.search(r"(?<=\d)((?:mpt_walk|keccak256)_[a-z0-9_]*?_kernel)(?:ILi(\d+)E)?", line)
+            kernel = (found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "")
+                      if found else line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            log(f"[2 build] ptxas {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
 
     # ---- witnesses ----------------------------------------------------
     t0 = time.time()
@@ -381,6 +401,15 @@ def main() -> None:
         f"path {p_ms:.4f} ms/batch = {N_ACCOUNTS / p_ms * 1e3:,.0f} proofs/s "
         f"(runs {times}) on {card}")
 
+    prof = device_profile(lambda i: mpt.verify_proofs_pooled(
+        *batch, *pool, ht["pool_hints"], max_value_len=128, depth_segments=segs,
+        pool_segments=psegs), 10)
+    top = "; ".join(f"{n[:50]} {ms * 1e3:.1f} us x{c:.0f}" for n, ms, c in prof["top"])
+    log(f"[6 profile] pooled verify, {N_ACCOUNTS} proofs, torch.profiler over 10 calls: "
+        f"host {prof['wall_ms']:.4f} ms/call, device busy {prof['busy_ms']:.4f} ms/call "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), {prof['launches']:.0f} device "
+        f"launches/call; top by device time: {top} on {card}")
+
     k1_ms = cuda_timer(lambda i: mpt._hash_pool_rows(pn, pl, psegs), TIMED_ITERS)
     k1_plain_ms = cuda_timer(
         lambda i: torch.cat([tkeccak.keccak256(pn[o:o + c, :w], pl[o:o + c])
@@ -403,6 +432,7 @@ def main() -> None:
     bnd = phase_bounded(sw, adv_args, inline_entries, dev)
     k3 = phase_k3(pn, pl, dig_k, card, dev)
     sto = phase_storage(sw, card, dev)
+    slot_args = sw["slot_args"]
     del sw
 
     # ---- 11-13. the hint modes, the block path, their timings -----------
@@ -411,6 +441,7 @@ def main() -> None:
     hm = phase_hint_modes(hctx, adv_ctx, txw, dev)
     blk = phase_blocks(txw, repo, dev)
     phase_block_timings(hctx, txw, hm["tx_result"], card)
+    ab = phase_ab(head_segs, max_steps, slot_args, txw, pn, pl, psegs, card)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "zk_state_proofs_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
@@ -446,6 +477,7 @@ def main() -> None:
         "keccak256_raw", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:211",
         by_path, "keccak256_raw", k3["err"], k3["ms"], k3["plain_ms"],
         keccak_bound(pl, ((pn.shape[0], pn.shape[1]),))))
+    log(json.dumps({"ab": ab}))
     log(f"[bound] the least time for each kernel's work: bytes over "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, 32-bit integer operations over "
         f"{INT32_OPS_PER_S / 1e12:.2f} T/s, the larger of the two")
@@ -1196,6 +1228,72 @@ def phase_block_timings(head, txw, tx_result, card):
     tx_bound = walk_bound(*batch[:3], batch[4].shape[1], mvl, True)
     log(f"[13 bound] K2 hinted at transaction geometry: bound {tx_bound[0]:.5f} ms "
         f"({tx_bound[1]}); device {us_text(ab['transaction geometry']['hinted'])}")
+
+
+def phase_ab(head_segs, head_steps, slot_args, txw, pn, pl, psegs, card):
+    """Phase 14: K1 and K2 against the one-thread kernels that came before
+    them (`keccak256_cuda_thread`, `walk_lanes_thread`), on this card, in
+    turns (old, new, new, old; the lower of two windows each), device time
+    per batch from queued CUDA events; each batch's results from the two
+    kernels equal bit for bit. Returns the rows of the {"ab": ...} line."""
+    geo = txw["geo"]
+    targs = lane_args(txw["batch"], txw["dig"])
+    cases = []  # (kernel, mode, batch label, [(args, kwargs), ...] one per launch)
+    for mode in mpt.WALK_MODES:
+        cases.append(("K2", mode, f"headline, {len(head_segs)} segments",
+                      [((mode, *a, 128, head_steps), {"hints": h}) for a, h in head_segs]))
+    for mode in ("bounded", "exact"):
+        cases.append(("K2", mode, f"slot batch {tuple(slot_args[0].shape)}",
+                      [((mode, *slot_args, 64, slot_args[0].shape[1] + 6), {})]))
+    for mvl in (geo.max_value_len, 0):
+        cases.append(("K2", "hinted", f"transaction geometry {tuple(targs[0].shape)}, "
+                      f"max_value_len {mvl}",
+                      [(("hinted", *targs, mvl, geo.max_steps), {"hints": txw["htab"]})]))
+    offs = seg_offsets(psegs)
+    for (o, (c, w)), k in zip(zip(offs, psegs), range(len(psegs))):
+        cases.append(("K1", "keccak256", f"headline pool segment {k} ({c} rows x {w} B)",
+                      [((pn[o:o + c, :w], pl[o:o + c]), {})]))
+    tpn, tpl = txw["pool"][0], txw["pool"][1]
+    cases.append(("K1", "keccak256", f"transaction pool ({tpn.shape[0]} rows x "
+                  f"{tpn.shape[1]} B)", [((tpn, tpl), {})]))
+
+    for label, a, kw, mvl, steps in (
+            ("headline segment", head_segs[0][0], {"hints": head_segs[0][1]}, 128, head_steps),
+            ("slot batch", slot_args, {}, 64, slot_args[0].shape[1] + 6),
+            ("transaction geometry", targs, {"hints": txw["htab"]}, geo.max_value_len,
+             geo.max_steps)):
+        mode = "hinted" if kw else "bounded"
+        lay = mpt_cuda.walk_layout(mode, *a, mvl, steps, **kw)
+        log(f"[14 layout] K2 {mode}, {label} {tuple(a[0].shape)}: {lay['lanes']} lanes a "
+            f"proof, shared memory {lay['proof_bytes']} B a proof, {lay['block_bytes']} B "
+            f"a block of 4 warps, node rows staged: {lay['staging']}")
+    rows = []
+    for kern, mode, label, calls in cases:
+        new_fn, old_fn = ((keccak_cuda.keccak256_cuda, keccak_cuda.keccak256_cuda_thread)
+                          if kern == "K1" else (mpt_cuda.walk_lanes, mpt_cuda.walk_lanes_thread))
+
+        def run(fn):
+            return [fn(*a, **kw) for a, kw in calls]
+
+        new, old = run(new_fn), run(old_fn)
+        torch.cuda.synchronize()
+        flat = lambda res: [x for r in res for x in (r if isinstance(r, tuple) else (r,))]
+        e = max_err(flat(new), flat(old))
+        check(e == 0, f"{kern} {mode} on the {label}: the new kernel differs from the "
+                      f"one-thread kernel (max abs err {e})")
+        t = {}
+        for which in ("old", "new", "new", "old"):
+            fn = old_fn if which == "old" else new_fn
+            t[which] = lower(t.get(which), device_us(lambda i: run(fn)))
+        speed = (None if None in t.values() else t["old"] / t["new"])
+        rows.append({"kernel": kern, "mode": mode, "batch": label, "launches": len(calls),
+                     "old_us": t["old"], "new_us": t["new"], "speedup": speed,
+                     "equal": True})
+        log(f"[14 A/B] {kern} {mode}, {label}: one-thread kernel {us_text(t['old'])}, "
+            f"new kernel {us_text(t['new'])} per batch of {len(calls)} launch(es)"
+            + ("" if speed is None else f", {speed:.2f}x") + f"; results equal bit for "
+            f"bit ({DEVICE_TIMING}, the lower of two windows) on {card}")
+    return rows
 
 
 def adversarial_entries(entries):

@@ -30,6 +30,10 @@ from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, POOL_FIELDS,
                                                       tx_geometry_batch,
                                                       tx_geometry_block)
 
+# The suite runs in several worker processes on one machine: one intra-op
+# thread each keeps torch's thread pools from oversubscribing its cores.
+torch.set_num_threads(1)
+
 FIXTURE = Path(__file__).resolve().parent.parent / "fixtures" / "mainnet_block_46147.json"
 
 

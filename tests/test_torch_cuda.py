@@ -1,4 +1,5 @@
-"""Kernels K1, K2 and K3 against their plain versions, on the card.
+"""Kernels K1, K2 and K3 against their plain versions, on the card; K1
+and K2 also against the one-thread kernels that came before them.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX and nothing of the JAX package, so it runs on a machine with PyTorch alone:
@@ -43,10 +44,25 @@ def test_keccak_kernel_matches_plain(dev):
     assert torch.equal(got, tkeccak.keccak256(rows, lens))
     for i, n in enumerate(edge):
         assert bytes(got[i].cpu().numpy()) == keccak256(bytes(data[i, :n]))
-    # a column slice (row stride 576, width 300) hashes in place
-    short = lens.clamp(max=300)
-    assert torch.equal(keccak_cuda.keccak256_cuda(rows[:, :300], short),
-                       tkeccak.keccak256(rows[:, :300], short))
+    assert torch.equal(got, keccak_cuda.keccak256_cuda_thread(rows, lens))
+    # column slices hash in place: row stride 576, widths 300 and 137, rows
+    # starting 0, 1 or 4 bytes in (1-, 4- and 8-byte aligned), with the
+    # lengths as they are, so len > width on most rows (the pad bytes' places
+    # come from len, the bytes at or past the width read 0)
+    for start, width in ((0, 300), (1, 300), (4, 137), (1, 575)):
+        view = rows[:, start:start + width]
+        want = tkeccak.keccak256(view, lens)
+        assert torch.equal(keccak_cuda.keccak256_cuda(view, lens), want)
+        assert torch.equal(keccak_cuda.keccak256_cuda_thread(view, lens), want)
+    # transaction-geometry rows (2092 B, 4-byte aligned) of 1 to 16 blocks
+    tx_lens = [0, 135, 136, 1000, 2091, 2092, 1500, 2176]
+    tx = torch.from_numpy(rng.integers(0, 256, (len(tx_lens), 2092), dtype=np.uint8)).to(dev)
+    tl = torch.tensor(tx_lens, dtype=torch.int32, device=dev)
+    want = tkeccak.keccak256(tx, tl)
+    assert torch.equal(keccak_cuda.keccak256_cuda(tx, tl), want)
+    assert torch.equal(keccak_cuda.keccak256_cuda_thread(tx, tl), want)
+    for i, n in enumerate(tx_lens[:6]):
+        assert bytes(want[i].cpu().numpy()) == keccak256(bytes(tx[i, :n].cpu().numpy()))
 
 
 def _entries():
@@ -87,10 +103,20 @@ def test_walk_kernel_matches_plain(dev, mode):
     got = mpt_cuda.walk_lanes(mode, *args, hints=hints)
     torch.cuda.synchronize()
     want = mpt.walk_kernel_plain(mode, *args, hints=hints)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    old = mpt_cuda.walk_lanes_thread(mode, *args, hints=hints)
+    for g, w, o in zip(got, want, old):
+        assert torch.equal(g, w) and torch.equal(o, w)
     if mode == "hinted":
         assert int(got[0][:, 4].sum()) > 0  # the inline-node proofs latch
+
+
+# The walk kernel's three ways of holding node rows (csrc/mpt_walk.cu):
+# the whole slab in shared memory (576, 573 and 2092 B rows: 16-, 1- and
+# 4-byte aligned), one row at a time (8 x 4000 B exceeds a proof's budget,
+# 24 KB in the hinted modes and 6 KB in `exact` and `bounded`, where
+# 8 x 2092 B does too), and rows read from device memory (one 30000 B row
+# exceeds either).
+NODE_LENS = (576, 573, 2092, 4000, 30000)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -98,47 +124,55 @@ def test_walk_kernel_matches_plain_on_fuzzed_batch(dev, seed):
     """Random byte flips in node bytes and lengths (walked against the
     digests of the unflipped nodes, so the flips are decoded), and random
     hint bytes: the kernel's six words and values equal the plain walk's
-    in every mode."""
-    packed = _batch()
-    t = packed_to_tensors(packed, dev, pool=False)
-    dig = mpt.hash_nodes(t["nodes"], t["node_lens"])  # of the unflipped nodes
+    and the thread kernel's in every mode, at every node width of
+    NODE_LENS, with value rows of 128 bytes, of 37 (not a multiple of 16,
+    so rows start unaligned) and of 5000 (past the node buffer)."""
     rng = np.random.default_rng(seed)
-    bb, d, n = packed.nodes.shape
-    for i in range(bb):
-        for j in range(int(packed.num_nodes[i])):
-            ln = int(packed.node_lens[i, j])
-            for pos in rng.integers(0, ln, rng.integers(0, 3)):
-                packed.nodes[i, j, pos] = rng.integers(0, 256)
-            if rng.random() < 0.1:  # lengths past the buffer too
-                packed.node_lens[i, j] = rng.integers(0, n + 64)
-    t = packed_to_tensors(packed, dev, pool=False)
-    b = [t[k] for k in BATCH_FIELDS]
-    hints = host_item_offsets(packed.nodes.reshape(bb * d, n)).reshape(bb, d, 36)
-    flip = rng.random(hints.shape) < 0.02
-    hints = np.where(flip, rng.integers(0, 256, hints.shape, dtype=np.uint8), hints)
-    hints = torch.from_numpy(hints).to(dev)
-    args = (b[0], b[1], b[2], dig, b[3], b[4], b[5], 128, d + 6)
-    for mode in mpt.WALK_MODES:
-        got = mpt_cuda.walk_lanes(mode, *args, hints=hints)
-        torch.cuda.synchronize()
-        want = mpt.walk_kernel_plain(mode, *args, hints=hints)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), mode
+    for node_len in NODE_LENS:
+        packed = pack_proofs(_entries(), max_nodes=8, node_len=node_len)
+        t = packed_to_tensors(packed, dev, pool=False)
+        dig = mpt.hash_nodes(t["nodes"], t["node_lens"])  # of the unflipped nodes
+        bb, d, n = packed.nodes.shape
+        for i in range(bb):
+            for j in range(int(packed.num_nodes[i])):
+                ln = int(packed.node_lens[i, j])
+                for pos in rng.integers(0, ln, rng.integers(0, 3)):
+                    packed.nodes[i, j, pos] = rng.integers(0, 256)
+                if rng.random() < 0.1:  # lengths past the buffer too
+                    packed.node_lens[i, j] = rng.integers(0, n + 64)
+        t = packed_to_tensors(packed, dev, pool=False)
+        b = [t[k] for k in BATCH_FIELDS]
+        hints = host_item_offsets(packed.nodes.reshape(bb * d, n)).reshape(bb, d, 36)
+        flip = rng.random(hints.shape) < 0.02
+        hints = np.where(flip, rng.integers(0, 256, hints.shape, dtype=np.uint8), hints)
+        hints = torch.from_numpy(hints).to(dev)
+        for mvl in (128, 37, 5000):
+            args = (b[0], b[1], b[2], dig, b[3], b[4], b[5], mvl, d + 6)
+            for mode in mpt.WALK_MODES:
+                got = mpt_cuda.walk_lanes(mode, *args, hints=hints)
+                torch.cuda.synchronize()
+                want = mpt.walk_kernel_plain(mode, *args, hints=hints)
+                old = mpt_cuda.walk_lanes_thread(mode, *args, hints=hints)
+                for g, w, o in zip(got, want, old):
+                    assert torch.equal(g, w), (mode, node_len, mvl)
+                    assert torch.equal(o, w), (mode, node_len, mvl)
 
 
 def test_hinted_variants_match_plain(dev):
     """Every hinted mode (`hinted` and its variants `hinted4`, `hinted1`,
     `ordered`, `pairskip`) on the batch with an unordered proof and a
-    long-form item in branch slot 2, on a node axis that is a multiple of 4
-    and on one that is not (the `hinted1` wrapper pads it), whole and as a
-    row slice (a depth segment's view): kernel == plain, and the flags of
-    `hinted4` and `ordered` differ from `hinted`'s where they should."""
+    long-form item in branch slot 2, at every node width of NODE_LENS
+    (a node axis that is a multiple of 4 and ones that are not: the thread
+    kernel's `hinted1` wrapper pads them), whole, as a row slice and as a
+    depth segment's view (rows and node axis cut, strides kept): kernel ==
+    plain == thread kernel, and the flags of `hinted4` and `ordered` differ
+    from `hinted`'s where they should."""
     entries = _entries()
     long_slot = rlp.encode([b"", b"", b"\x5a" * 60] + [b""] * 14)
     root0, proof0, key0 = entries[0]
     entries += [(root0, proof0[::-1], key0),
                 (keccak256(long_slot), [long_slot], b"\x20" + b"\x00" * 31)]
-    for node_len in (573, 576):
+    for node_len in NODE_LENS:
         _check_hinted_variants(dev, pack_proofs(entries, max_nodes=8, node_len=node_len))
 
 
@@ -149,17 +183,20 @@ def _check_hinted_variants(dev, packed):
     bb, d, n = packed.nodes.shape
     hints = torch.from_numpy(host_item_offsets(packed.nodes.reshape(bb * d, n))
                              .reshape(bb, d, 36)).to(dev)
-    for sl in (slice(0, bb), slice(1, bb)):
-        args = (b[0][sl], b[1][sl], b[2][sl], dig[sl], b[3][sl], b[4][sl], b[5][sl],
-                128, d + 6)
+    for sl, dd in ((slice(0, bb), d), (slice(1, bb), d), (slice(1, bb), d - 2)):
+        args = (b[0][sl, :dd], b[1][sl, :dd], b[2][sl], dig[sl, :dd], b[3][sl],
+                b[4][sl], b[5][sl], 128, d + 6)
         flags = {}
         for mode in mpt.HINT_MODES:
-            got = mpt_cuda.walk_lanes(mode, *args, hints=hints[sl])
+            got = mpt_cuda.walk_lanes(mode, *args, hints=hints[sl, :dd])
             torch.cuda.synchronize()
-            want = mpt.walk_kernel_plain(mode, *args, hints=hints[sl])
-            for g, w in zip(got, want):
-                assert torch.equal(g, w), (mode, n)
+            want = mpt.walk_kernel_plain(mode, *args, hints=hints[sl, :dd])
+            old = mpt_cuda.walk_lanes_thread(mode, *args, hints=hints[sl, :dd])
+            for g, w, o in zip(got, want, old):
+                assert torch.equal(g, w) and torch.equal(o, w), (mode, n, dd)
             flags[mode] = got[0][:, 4].cpu()
+        if dd < d:
+            continue  # the cut proofs: the flags below are the whole slab's
         assert flags["hinted"][-1] == 1 and flags["hinted4"][-1] == 0
         assert flags["ordered"][-2] == 1 and flags["hinted"][-2] == 0
         for mode in ("hinted1", "pairskip"):

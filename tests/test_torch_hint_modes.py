@@ -19,6 +19,10 @@ from zk_state_proofs_tpu_torch.ops import mpt as tmpt
 from zk_state_proofs_tpu_torch.ops import mpt_cuda
 from zk_state_proofs_tpu_torch.witness import host_item_offsets
 
+# The suite runs in several worker processes on one machine: one intra-op
+# thread each keeps torch's thread pools from oversubscribing its cores.
+torch.set_num_threads(1)
+
 VARIANTS = ("hinted4", "hinted1", "ordered", "pairskip")
 _jax_walk = jax.jit(jmpt.walk_batch, static_argnums=(7, 8))
 

@@ -5,12 +5,17 @@ digests, encodings, tries and proofs."""
 
 import numpy as np
 import pytest
+import torch
 
 from zk_state_proofs_tpu import oracle as jax_oracle
 from zk_state_proofs_tpu.witness import pack_proofs as jax_pack
 from zk_state_proofs_tpu_torch import native, oracle
 from zk_state_proofs_tpu_torch.witness import pack_proofs
 from zk_state_proofs_tpu_torch.witness_bridge import account_entries, storage_world
+
+# The suite runs in several worker processes on one machine: one intra-op
+# thread each keeps torch's thread pools from oversubscribing its cores.
+torch.set_num_threads(1)
 
 ARRAYS = ("nodes", "node_lens", "num_nodes", "roots", "key_nibbles", "key_lens")
 

@@ -15,6 +15,10 @@ from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
 from zk_state_proofs_tpu_torch.ops import keccak_cuda
 from zk_state_proofs_tpu_torch.ops import mpt as tmpt
 
+# The suite runs in several worker processes on one machine: one intra-op
+# thread each keeps torch's thread pools from oversubscribing its cores.
+torch.set_num_threads(1)
+
 EDGE_LENS = [0, 1, 135, 136, 137, 271, 272, 535, 536, 576]
 
 

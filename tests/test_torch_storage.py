@@ -9,6 +9,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from zk_state_proofs_tpu.models import verify_storage_batch as jax_batch
 from zk_state_proofs_tpu.models import verify_storage_grouped as jax_grouped
@@ -18,6 +19,10 @@ from zk_state_proofs_tpu_torch.models import (verify_storage_batch,
                                               verify_storage_grouped)
 from zk_state_proofs_tpu_torch.ops import mpt
 from zk_state_proofs_tpu_torch.witness import pack_proofs
+
+# The suite runs in several worker processes on one machine: one intra-op
+# thread each keeps torch's thread pools from oversubscribing its cores.
+torch.set_num_threads(1)
 
 BUCKET = dict(max_nodes=6, node_len=576)
 ROWS = 44  # slots of the three worlds below

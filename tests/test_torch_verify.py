@@ -30,6 +30,10 @@ from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, POOL_FIELDS,
                                                       packed_to_tensors,
                                                       storage_world)
 
+# The suite runs in several worker processes on one machine: one intra-op
+# thread each keeps torch's thread pools from oversubscribing its cores.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def headline_256():
@@ -175,6 +179,7 @@ def test_import_loads_neither_jax_nor_cuda():
     CPU, loads no JAX, no module of the JAX package and no CUDA."""
     code = (
         "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
         "import zk_state_proofs_tpu_torch\n"
         "import zk_state_proofs_tpu_torch.ops.mpt, zk_state_proofs_tpu_torch.ops.mpt_cuda\n"
         "import zk_state_proofs_tpu_torch.ops.keccak_cuda\n"

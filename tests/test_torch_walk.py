@@ -16,6 +16,10 @@ from zk_state_proofs_tpu.witness.pack import host_item_offsets
 from zk_state_proofs_tpu_torch.ops import mpt as tmpt
 from zk_state_proofs_tpu_torch.ops import mpt_cuda
 
+# The suite runs in several worker processes on one machine: one intra-op
+# thread each keeps torch's thread pools from oversubscribing its cores.
+torch.set_num_threads(1)
+
 _jax_walk = jax.jit(jmpt.walk_batch, static_argnums=(7, 8))
 
 

@@ -6,13 +6,13 @@ re-built on PyTorch with hand-written CUDA kernels for Hopper (sm_90a):
 
   ops/keccak.py      plain batched Keccak-256 (the CPU path and the reference
                      of kernels K1 and K3)
-  ops/keccak_cuda.py K1: one-thread-per-message Keccak-256 sponge; K3: the
+  ops/keccak_cuda.py K1: Keccak-256 sponge, a warp per message; K3: the
                      same from raw little-endian words (csrc/keccak.cu)
   ops/rlp.py         RLP header/node decoding as indexed loads
   ops/mpt.py         plain walk (the CPU path and the reference of K2), pool
                      hashing, scatter, and the verify entry points
-  ops/mpt_cuda.py    K2: one-thread-per-proof fused MPT walk in all the TPU
-                     kernel's modes: `hinted` and its variants `hinted4`,
+  ops/mpt_cuda.py    K2: fused MPT walk, a warp per proof over a shared-
+                     memory slab, in all the TPU kernel's modes: `hinted` and its variants `hinted4`,
                      `hinted1`, `ordered`, `pairskip` (`hint_mode`),
                      `bounded` and `exact` (csrc/mpt_walk.cu)
   models/            verifier workloads (accounts, two-level storage, block

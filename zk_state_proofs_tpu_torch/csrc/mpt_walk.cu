@@ -3,14 +3,85 @@
 // `ordered` and `pairskip`.
 //
 // Replaces zk_state_proofs_tpu/ops/mpt_pallas.py::_walk_kernel (every
-// mode). The TPU kernel holds every per-proof scalar as an
-// (8, 128) lane tile and, lacking a vector gather, reads node bytes through
-// masked reduces over the node's word axis and binary shift cascades. Here
-// one thread walks one proof and reads its bytes with plain indexed loads
-// straight from global memory: the proof's [D, N] node slab (about 4 KB at
-// the account bucket), its digests and its hints. A thread leaves its loop
-// as soon as its proof resolves (every latch of the TPU kernel is gated on
-// the proof being live, so the early exit changes nothing).
+// mode). The TPU kernel holds every per-proof scalar as an (8, 128) lane
+// tile and, lacking a vector gather, reads node bytes through masked
+// reduces over the node's word axis and binary shift cascades.
+//
+// Design: a group of lanes per proof over a shared-memory slab
+// (mpt_walk_warp_kernel<G>, zkp_mpt_walk), in blocks of kWarps = 4 warps.
+// In the hinted modes the group is a warp (G = 32: item i is decoded on
+// lane i), so the headline's depth segments of 1024, 2048 and 1024 proofs
+// launch as many warps, and a 4096-proof batch at transaction geometry as
+// 4096. In `exact` and `bounded` it is 8 lanes (four proofs a warp; see
+// the serial decode below).
+//  - Staging: the group first copies the proof's live node rows (the full
+//    N bytes of each row, zero-filled to a 16-byte stride S), their
+//    digests, node lengths, hints (hinted modes), key nibbles and root into
+//    its own region of shared memory, lanes on consecutive chunks:
+//    cp.async of 16 bytes where source and destination addresses and
+//    strides are 16-byte aligned (576-byte account rows), of 4 bytes where
+//    they are 4-byte aligned (2092-byte transaction rows), single bytes
+//    otherwise (block buckets take any N). Every byte the walk consults
+//    then comes from shared memory, and each byte of device memory is
+//    read once.
+//  - Reads: every RLP header (four bytes at a clamped position) is two
+//    aligned 32-bit shared loads and a funnel shift (RowFetch); rows read
+//    from device memory (below) take four byte loads. So every hinted
+//    mode reads its headers as the aligned words `hinted1` asks for.
+//  - Digest search: lane dd compares digest row dd with the 32 expected
+//    bytes; __ballot_sync and __ffs give the FIRST matching row.
+//  - Hinted decode (hinted, hinted4, hinted1, ordered, pairskip): lane i
+//    (0..16) decodes item i at its hint; the chain law, the counts and the
+//    latches are ballots, the selected items' fields shuffles from their
+//    lanes.
+//  - Serial decode (exact, bounded): the latch rules are a serial chain of
+//    18 header reads; every lane of the group runs it on the same shared
+//    words. A warp per proof would issue this chain once for one proof,
+//    where the thread kernel issued it once for 32, and on the 4096-slot
+//    batch it was then no faster than the thread kernel: bound by
+//    instruction issue. With 8 lanes a proof one issued chain serves four
+//    proofs, and 8 lanes still stage a row, search up to 8 digests a
+//    ballot and copy a value in few steps.
+//  - Merge and step_pair: group-uniform. Every lane computes the same
+//    merge from the same shared bytes (SIMT issues it once for the group's
+//    lanes, so this costs what one lane would and needs no broadcast);
+//    step_pair's nibble compare is split over the lanes and joined by a
+//    vote.
+//  - Value copy: the group writes the value row with 16-byte stores where
+//    the output row's address allows (a head and a tail of single bytes
+//    around them; max_value_len is the row stride and need not be a
+//    multiple of 16), each 16 bytes assembled from aligned shared words
+//    with funnel shifts.
+//
+// What bounds it on the H100: the bytes bound is small (the headline's
+// live nodes, digests and hints are about 9 MB read and written, 2.7 us at
+// 3.35 TB/s); what held the one-thread-per-proof kernel back was latency:
+// 32 to 128 warps on 132 SMs, each step a chain of dependent, uncoalesced
+// byte loads from device memory, and a per-thread byte loop for the value.
+// The group design puts one proof on each warp or group (thousands of
+// warps), turns the device traffic into one coalesced copy per proof, and
+// leaves the dependent chain in shared memory (about 30 cycles a link
+// instead of hundreds).
+//
+// Shared-memory budget: kSlabBudget = 24 KB a warp (96 KB a block at most,
+// two blocks or more an SM), so 24 KB a proof in the hinted modes and 6 KB
+// in `exact` and `bounded`. The headline slab (7 x 576 B rows plus tables)
+// takes about 4.7 KB, the slot batch's (6 x 544 B) 3.6 KB, the transaction
+// geometry's (5 x 2096 B) about 11 KB. Where d x S and the tables exceed
+// the budget, the same kernel stages one row at a time (STAGE_ROW: the row
+// the step reads, reloaded when the step moves to another row). Where one
+// row alone exceeds it (a block with a 100 KB transaction), the group
+// reads node rows from device memory (STAGE_NONE; the tables stay in
+// shared memory). `ordered` may read a row
+// at or past num_nodes: that row is never staged and is read from device
+// memory as well. The tables need up to 72 + 4 bytes a node row, for each
+// of a block's 4 hinted or 16 serial proofs: past about 700 (hinted) or
+// 190 (serial) rows the block's shared memory exceeds the card's and the
+// launch fails (the wrapper raises).
+//
+// The one-thread-per-proof kernel that came before (mpt_walk_thread_kernel,
+// zkp_mpt_walk_thread) stays below, unchanged, as the baseline of a
+// same-run A/B; no path calls it.
 //
 // Semantics follow the TPU kernel bit for bit:
 //  - byte positions clamp to [0, N4 - 1] (N4 = N rounded up to a multiple
@@ -41,36 +112,25 @@
 //  - `hinted4` is `hinted` with every item header decoded from four bytes
 //    (head_at), so branch slots 2..15 take no long-form latch; its flag
 //    differs from `hinted`'s only on a present long-form item there;
-//  - `hinted1` is `hinted` with the node read as aligned 32-bit words
-//    (N % 4 == 0, rows 4-byte aligned: the wrapper pads): each item's
-//    header comes from one or two words through a two-word cache, so on a
-//    monotonic hint chain every consulted word is loaded once (the TPU's
-//    single pass over the node's words feeding all 17 headers). Same flag
-//    and words as `hinted`;
+//  - `hinted1` is `hinted` with the node read as aligned 32-bit words,
+//    each header from one or two words: in the thread kernel from device
+//    memory through a two-word cache (N % 4 == 0, rows 4-byte aligned: its
+//    wrapper pads); the warp kernel reads every mode's headers so, from
+//    its shared slab (rows at a 16-byte stride, zero past N). Same flag and
+//    words as `hinted`;
 //  - `ordered` reads, at step s, the node at row min(s, d - 1) and latches
 //    the flag on a live proof whose node_idx differs (an unordered pack, a
 //    root not at row 0, a step after an inline child); the rest is
 //    `hinted`'s decode and merge, the digest search included;
-//  - `pairskip` gates the extension/leaf block on a warp vote: it runs for
-//    every thread of the warp's live threads when any of them sits on a
-//    2-item node (the TPU's tile-wide pl.when(any_pair)). Same flag and
-//    words as `hinted`: a thread's own vote is in the vote;
+//  - `pairskip` gates the extension/leaf block on a vote over the proofs
+//    walked together (the TPU's tile-wide pl.when(any_pair)). In the warp
+//    kernel a warp walks one hinted proof, so the vote is the proof's own
+//    is_pair; in the thread kernel it is __any_sync over the warp's live
+//    threads. Same flag and words as `hinted` either way: a proof's own
+//    vote is in the vote;
 //  - the value is copied out at the end, byte-aligned: value[j] =
 //    node[vnode][clip(vstart) + j] for j < vlen (0 past the buffer).
 //
-// What bounds it on the H100: latency of dependent byte loads. Each step
-// of the exact and bounded decodes is a chain of 18 dependent header
-// fetches, and the loads of one warp fall on 32 different proofs
-// (uncoalesced). The hinted mode breaks the chain: its 17 header fetches
-// are independent. The bounded mode's windows, which cut the TPU's masked
-// reduces, buy nothing here (a load costs the same at any offset); it is
-// kept for its latch, which must equal the TPU kernel's. The value copy is
-// a per-thread byte loop, uncoalesced too: at transaction and receipt
-// geometry (about 2 KB leaves) it moves up to max_value_len bytes a proof.
-// The first version keeps that simple design (no shared-memory staging, no
-// cooperative warps); a later tuning pass can stage the slab in shared
-// memory or give a proof to a group of threads.
-
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -420,7 +480,7 @@ __device__ __forceinline__ bool digest_find(const uint8_t* dig, long long s1,
   return false;
 }
 
-__global__ void mpt_walk_kernel(const WalkArgs a) {
+__global__ void mpt_walk_thread_kernel(const WalkArgs a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.batch) return;
   const int n = a.n;
@@ -562,15 +622,632 @@ __global__ void mpt_walk_kernel(const WalkArgs a) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The warp kernel: a group of lanes per proof over a shared-memory slab.
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kWarps = 4;               // warps per block
+constexpr int kSlabBudget = 24 * 1024;  // shared bytes one warp may hold
+constexpr int kSerialLanes = 8;         // lanes a proof in `exact`, `bounded`
+
+// how a group holds its proof's node rows (WarpLayout.staging)
+enum Staging { STAGE_ALL = 0, STAGE_ROW = 1, STAGE_NONE = 2 };
+
+// the low g bits set (g <= 32)
+__host__ __device__ constexpr unsigned low_bits(int g) {
+  return g >= 32 ? kFull : (1u << g) - 1u;
+}
+
+// The G lanes of a warp that walk one proof (G = 32 or 8), and their
+// collectives: a ballot as a G-bit mask of the group's own lanes.
+template <int G>
+struct Group {
+  int lane;       // lane within the group
+  int base;       // the group's first lane in the warp
+  unsigned mask;  // the group's lanes in the warp
+  __device__ unsigned ballot(bool p) const {
+    return (__ballot_sync(mask, p) >> base) & low_bits(G);
+  }
+  __device__ bool any(bool p) const { return __any_sync(mask, p); }
+  __device__ void sync() const { __syncwarp(mask); }
+};
+
+// One proof's region of shared memory, as byte offsets from its start; the
+// same for every proof of a launch.
+struct WarpLayout {
+  int s;        // slab row stride: N rounded up to 16
+  int staging;  // a Staging
+  int dig, hint, lens, knib, root, expect;
+  int bytes;  // the whole region, a multiple of 16
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copy nrows rows of rowbytes bytes (row r at src + r * src_stride) to
+// shared memory at dst + r * dst_stride, and zero bytes [rowbytes,
+// dst_stride) of each row. The group's G lanes take consecutive chunks:
+// 16-byte cp.async where both addresses and strides are 16-byte aligned,
+// 4-byte where they are 4-byte aligned, single bytes otherwise. The caller
+// waits (cp_async_wait_all) and syncs the group before reading.
+template <int G>
+__device__ void stage_rows(uint8_t* dst, int dst_stride, const uint8_t* src,
+                           long long src_stride, int nrows, int rowbytes,
+                           int lane) {
+  if (nrows <= 0) return;
+  const unsigned long long al =
+      (unsigned long long)(uintptr_t)src | (unsigned long long)src_stride |
+      (unsigned long long)(uintptr_t)dst | (unsigned long long)dst_stride;
+  const int w = (al & 15) == 0 ? 16 : ((al & 3) == 0 ? 4 : 1);
+  const int chunks = w > 1 ? rowbytes / w : 0;  // whole chunks a row
+  const int done = chunks * w;
+  for (int k = lane; k < nrows * chunks; k += G) {
+    const int r = k / chunks, c = (k - r * chunks) * w;
+    if (w == 16) {
+      cp_async16(dst + r * dst_stride + c, src + r * src_stride + c);
+    } else {
+      cp_async4(dst + r * dst_stride + c, src + r * src_stride + c);
+    }
+  }
+  const int rest = dst_stride - done;  // tail bytes, then zeros
+  if (rest <= 0) return;
+  for (int k = lane; k < nrows * rest; k += G) {
+    const int r = k / rest, p = done + (k - r * rest);
+    dst[r * dst_stride + p] = p < rowbytes ? src[r * src_stride + p] : 0;
+  }
+}
+
+// the first digest row dd < dlim equal to the 32 bytes at `expect` (both in
+// shared memory, 16-byte aligned): lane dd % G compares row dd, the lowest
+// matching row wins. The same result on every lane of the group.
+template <int G>
+__device__ __forceinline__ bool warp_find(const uint8_t* dig, int dlim,
+                                          const uint8_t* expect, int& idx,
+                                          const Group<G>& g) {
+  const uint4 e0 = reinterpret_cast<const uint4*>(expect)[0];
+  const uint4 e1 = reinterpret_cast<const uint4*>(expect)[1];
+  for (int base = 0; base < dlim; base += G) {
+    const int dd = base + g.lane;
+    bool eq = false;
+    if (dd < dlim) {
+      const uint4* r = reinterpret_cast<const uint4*>(dig + dd * 32);
+      const uint4 r0 = r[0], r1 = r[1];
+      eq = r0.x == e0.x && r0.y == e0.y && r0.z == e0.z && r0.w == e0.w &&
+           r1.x == e1.x && r1.y == e1.y && r1.z == e1.z && r1.w == e1.w;
+    }
+    const unsigned m = g.ballot(eq);
+    if (m) {
+      idx = base + __ffs(m) - 1;
+      return true;
+    }
+  }
+  return false;
+}
+
+// bytes pos..pos+3 of a node row (0 at or past byte n), little-endian.
+// sh: a shared slab row of s bytes (16-byte aligned, zero from n on).
+__device__ __forceinline__ uint32_t row_word(const uint8_t* row, bool sh,
+                                             int s, int n, int pos) {
+  if (sh) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(row);
+    const int j = pos >> 2, r = pos & 3;
+    const uint32_t lo = 4 * j < s ? w[j] : 0u;
+    const uint32_t hi = (r && 4 * (j + 1) < s) ? w[j + 1] : 0u;
+    return __funnelshift_r(lo, hi, 8 * r);
+  }
+  return (uint32_t)byte_at(row, n, pos) |
+         ((uint32_t)byte_at(row, n, pos + 1) << 8) |
+         ((uint32_t)byte_at(row, n, pos + 2) << 16) |
+         ((uint32_t)byte_at(row, n, pos + 3) << 24);
+}
+
+// the warp kernel's reads of a node row: a shared slab row (aligned words,
+// zero from byte n to the stride s) or a row in device memory (bytes)
+struct RowFetch {
+  const uint8_t* row;
+  bool sh;
+  int s, n, n4;
+  __device__ uint32_t bytes4(int pos) const {  // pos >= 0
+    return row_word(row, sh, s, n, pos);
+  }
+  // RLP header at pos, clamped like head_at
+  __device__ Head head(int pos) const {
+    const uint32_t x = bytes4(clampi(pos, 0, n4 - 1));
+    return head_fields(x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, x >> 24);
+  }
+  __device__ int first(int pos) const {
+    return (int)(bytes4(clampi(pos, 0, n4 - 1)) & 0xFF);
+  }
+};
+
+// decode_exact through a RowFetch
+__device__ Sel decode_exact_warp(const RowFetch& f, int start, int blen,
+                                 int child) {
+  Sel s = {};
+  const Head hd = f.head(start);
+  const int ps = start + hd.off;
+  const int end = ps + hd.len;
+  int cursor = ps;
+  bool all_ok = true;
+#pragma unroll 1
+  for (int i = 0; i < 17; ++i) {
+    const Head it = f.head(cursor);
+    const int ips = cursor + it.off;
+    const bool present = cursor < end;
+    take_item(s, i, present, child, cursor, ips, it.len, it.list);
+    s.count += present;
+    all_ok = all_ok && (!present || it.ok);
+    if (present) cursor = ips + it.len;
+  }
+  s.well_formed = hd.list && hd.ok && cursor == end && end <= blen && all_ok;
+  return s;
+}
+
+// head_win through a RowFetch: the window's bytes as one word, the bytes
+// at or past the window's end masked off
+__device__ __forceinline__ Head head_win_warp(const RowFetch& f, int base,
+                                              int sh_rows, int rel,
+                                              int hi_rows) {
+  const int wp = clampi(rel, 0, f.n4 - 1) >> 2;
+  if (wp >= min(sh_rows, hi_rows)) return head_fields(0, 0, 0, 0);
+  const int k = 4 * wp + (rel & 3);
+  uint32_t x = f.bytes4(base + k);
+  const int left = 4 * sh_rows - k;  // window bytes from k on, at least 1
+  if (left < 4) x &= (1u << (8 * left)) - 1u;
+  return head_fields(x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, x >> 24);
+}
+
+// decode_bounded through a RowFetch
+__device__ Sel decode_bounded_warp(const RowFetch& f, int start, int blen,
+                                   int child, bool& ovf) {
+  Sel s = {};
+  const int n4 = f.n4;
+  const int sh_rows = min(n4 / 4, (10 + 35 * 16 + 8) / 4 + 3);
+  const int head_pos = clampi(start, 0, n4 - 1);
+  const int base = (head_pos >> 2) * 4;
+  const Head hd = head_win_warp(f, base, sh_rows, head_pos - base, 3);
+  const int ps = start + hd.off;
+  const int end = ps + hd.len;
+  int cursor = ps;
+  bool all_ok = true, latch = false, past = false;
+#pragma unroll 1
+  for (int i = 0; i < 17; ++i) {
+    const bool present = cursor < end;
+    if (present && cursor - base > 10 + 35 * i) latch = true;
+    if (present && cursor > n4 - 1) past = true;
+    const Head it = head_win_warp(f, base, sh_rows, cursor - base,
+                                  (10 + 35 * i + 8) / 4 + 2);
+    const int ips = cursor + it.off;
+    take_item(s, i, present, child, cursor, ips, it.len, it.list);
+    s.count += present;
+    all_ok = all_ok && (!present || it.ok);
+    if (present) cursor = ips + it.len;
+  }
+  ovf = ovf || latch || (past && end <= blen);
+  s.well_formed = hd.list && hd.ok && cursor == end && end <= blen && all_ok;
+  return s;
+}
+
+// `hinted` and its variants, a warp per node: lane i (0..16) decodes item i
+// at its hint; the results are those of decode_hinted. short_slots: branch
+// slots 2..15 decoded from their first byte, with the long-form latch.
+__device__ Sel decode_hinted_warp(const RowFetch& f, const uint8_t* hrow,
+                                  int blen, int child, bool short_slots,
+                                  bool& ovf, int lane) {
+  const Head hd = f.head(0);
+  const int ps = hd.off;
+  const int end = ps + hd.len;
+  const int h0 = (hrow[0] << 8) | hrow[1];
+  const int h17 = (hrow[34] << 8) | hrow[35];
+  const bool item = lane < 17;
+  const int i = item ? lane : 16;
+  const int hi = (hrow[2 * i] << 8) | hrow[2 * i + 1];
+  const int hn = (hrow[2 * i + 2] << 8) | hrow[2 * i + 3];  // h[i + 1]
+  const bool present = item && hi < end;
+  bool latch = present && hi > 10 + 35 * i;
+  int ipo, ipl;
+  bool ilist, ok;
+  if (short_slots && i >= 2 && i <= 15) {
+    // branch slots 2..15: the first byte decides a short-form header
+    const int b0 = f.first(hi);
+    const bool single = b0 < 0x80;
+    const bool short_str = b0 >= 0x80 && b0 <= 0xB7;
+    const bool short_list = b0 >= 0xC0 && b0 <= 0xF7;
+    const bool longf = !single && !short_str && !short_list;
+    latch = latch || (present && longf);
+    ipo = single ? 0 : 1;
+    ipl = single ? 1 : (short_str ? b0 - 0x80 : b0 - 0xC0);
+    ilist = b0 >= 0xC0;
+    ok = !longf;
+  } else {
+    const Head it = f.head(hi);
+    ipo = it.off;
+    ipl = it.len;
+    ilist = it.list;
+    ok = it.ok;
+  }
+  const int ips = hi + ipo;
+  const bool chain = present ? hn == ips + ipl : hn == hi;
+  const bool chain_ok = h0 == ps && __ballot_sync(kFull, item && !chain) == 0;
+  const bool all_ok = __ballot_sync(kFull, present && !ok) == 0;
+  const bool any_latch = __ballot_sync(kFull, latch) != 0;
+
+  Sel s = {};
+  s.count = __popc(__ballot_sync(kFull, present));
+  s.i0_pay = __shfl_sync(kFull, ips, 0);
+  s.i0_len = __shfl_sync(kFull, ipl, 0);
+  s.i0_list = __shfl_sync(kFull, (int)ilist, 0);
+  s.i1_start = __shfl_sync(kFull, hi, 1);
+  s.i1_pay = __shfl_sync(kFull, ips, 1);
+  s.i1_len = __shfl_sync(kFull, ipl, 1);
+  s.i1_list = __shfl_sync(kFull, (int)ilist, 1);
+  s.i16_pay = __shfl_sync(kFull, ips, 16);
+  s.i16_len = __shfl_sync(kFull, ipl, 16);
+  const bool cin = child >= 0 && child < 16;
+  const int cl = cin ? child : 0;
+  const bool ctake = cin && __shfl_sync(kFull, (int)present, cl);
+  const int c_start = __shfl_sync(kFull, hi, cl);
+  const int c_pay = __shfl_sync(kFull, ips, cl);
+  const int c_len = __shfl_sync(kFull, ipl, cl);
+  const bool c_list = __shfl_sync(kFull, (int)ilist, cl);
+  if (ctake) {
+    s.c_start = c_start;
+    s.c_pay = c_pay;
+    s.c_len = c_len;
+    s.c_list = c_list;
+  }
+  ovf = ovf || any_latch || !chain_ok;
+  s.well_formed = hd.list && hd.ok && h17 == end && end <= blen && all_ok;
+  return s;
+}
+
+// step_pair with the nibble compare split over the group's lanes (the same
+// result on every lane of the group)
+template <int G>
+__device__ Pair step_pair_warp(const uint8_t* row, int n, int n4,
+                               const uint8_t* knib, int kn, int klen,
+                               int key_pos, int p0s, int p0l, bool p0list,
+                               const Group<G>& g) {
+  Pair p;
+  const int pc = clampi(p0s, 0, n4 - 1);
+  const int b0 = byte_at(row, n, pc);
+  const int flag = b0 >> 4;
+  const int odd = flag & 1;
+  p.is_leaf = flag >= 2;
+  p.hp_ok = !p0list && p0l >= 1 && flag <= 3 && (odd == 1 || (b0 & 0x0F) == 0);
+  p.n_path = 2 * (p0l - 1) + odd;
+  const int kn4 = (kn + 3) / 4 * 4;
+  const int kp = clampi(key_pos, 0, kn4 - 1);
+  const int lim = min(kn, p.n_path);
+  bool differs = false;
+  for (int j = g.lane; j < lim; j += G) {
+    const int k = j + 2 - odd;  // nibble index inside the path window
+    const int by = byte_at(row, n, pc + (k >> 1));
+    const int pn = (k & 1) ? (by & 0x0F) : (by >> 4);
+    const int kx = kp + j;
+    const int kv = kx < kn ? (int)knib[kx] : 0;
+    differs = differs || pn != kv;
+  }
+  p.match = !g.any(differs) && key_pos + p.n_path <= klen;
+  return p;
+}
+
+// value bytes j..j+3 (value[j] = row[vc + j] for j < vlen, else 0)
+__device__ __forceinline__ uint32_t value_word(const uint8_t* row, bool sh,
+                                               int s, int n, int vc, int vlen,
+                                               int j) {
+  const int m = vlen - j;  // value bytes in this word
+  if (m <= 0) return 0u;
+  const uint32_t w = row_word(row, sh, s, n, vc + j);
+  return m >= 4 ? w : w & ((1u << (8 * m)) - 1u);
+}
+
+// the group writes the value row v[0..mvl): 16-byte stores from the first
+// 16-byte aligned address of the row on, single bytes before and after
+template <int G>
+__device__ void copy_value(uint8_t* v, int mvl, const uint8_t* row, bool sh,
+                           int s, int n, int vc, int vlen, int lane) {
+  const int head = min(mvl, (int)((16 - ((uintptr_t)v & 15)) & 15));
+  const int body = (mvl - head) >> 4;
+  const int tail = head + 16 * body;
+  const int loose = head + (mvl - tail);
+  for (int k = lane; k < loose; k += G) {
+    const int j = k < head ? k : tail + (k - head);
+    v[j] = (uint8_t)(j < vlen ? byte_at(row, n, vc + j) : 0);
+  }
+  for (int k = lane; k < body; k += G) {
+    const int j = head + 16 * k;
+    uint4 o;
+    o.x = value_word(row, sh, s, n, vc, vlen, j);
+    o.y = value_word(row, sh, s, n, vc, vlen, j + 4);
+    o.z = value_word(row, sh, s, n, vc, vlen, j + 8);
+    o.w = value_word(row, sh, s, n, vc, vlen, j + 12);
+    *reinterpret_cast<uint4*>(v + j) = o;
+  }
+}
+
+// G lanes walk one proof: G = 32 in the hinted modes (lane i decodes item
+// i), G = kSerialLanes in `exact` and `bounded` (mpt_walk_lanes_for)
+template <int G>
+__global__ void __launch_bounds__(kWarps * 32)
+    mpt_walk_warp_kernel(const WalkArgs a, const WarpLayout L) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int gi = threadIdx.x / G;  // the group's proof slot in the block
+  const int b = blockIdx.x * (kWarps * 32 / G) + gi;
+  if (b >= a.batch) return;  // the whole group
+  Group<G> g;
+  g.lane = threadIdx.x % G;
+  g.base = (threadIdx.x & 31) - g.lane;
+  g.mask = low_bits(G) << g.base;
+  const int lane = g.lane;
+  uint8_t* sm = smem + gi * L.bytes;
+  uint8_t* slab = sm;
+  const uint8_t* s_dig = sm + L.dig;
+  const uint8_t* s_hint = sm + L.hint;
+  const int32_t* s_lens = reinterpret_cast<const int32_t*>(sm + L.lens);
+  const uint8_t* s_knib = sm + L.knib;
+  const uint8_t* s_root = sm + L.root;
+  uint8_t* s_expect = sm + L.expect;
+
+  const int n = a.n;
+  const int n4 = (n + 3) / 4 * 4;
+  const uint8_t* nodes = a.nodes + b * a.nodes_s0;
+  const int32_t* lens = a.node_lens + b * a.lens_s0;
+  const bool hinted = a.mode == HINTED || a.mode >= HINTED4;
+  const uint8_t* hints = hinted ? a.hints + b * a.hints_s0 : nullptr;
+  const int nnum = a.num_nodes[b];
+  const int klen = a.key_lens[b];
+  const int dlim = min(a.d, max(nnum, 0));
+
+  // ---- stage the proof: rows < dlim (the rows a walk can select) ----
+  stage_rows<G>(sm + L.dig, 32, a.digests + b * a.dig_s0, a.dig_s1, dlim, 32, lane);
+  if (hinted) stage_rows<G>(sm + L.hint, 36, hints, a.hints_s1, dlim, 36, lane);
+  stage_rows<G>(sm + L.lens, 4, reinterpret_cast<const uint8_t*>(lens),
+                4 * a.lens_s1, dlim, 4, lane);
+  stage_rows<G>(sm + L.knib, L.root - L.knib, a.knib + b * a.knib_s0, 0, 1,
+                a.kn, lane);
+  stage_rows<G>(sm + L.root, 32, a.roots + b * a.roots_s0, 0, 1, 32, lane);
+  if (L.staging == STAGE_ALL) {
+    stage_rows<G>(slab, L.s, nodes, a.nodes_s1, dlim, n, lane);
+  }
+  cp_async_wait_all();
+  g.sync();
+
+  // ---- init: locate the root node by digest ----
+  int node_idx = 0;
+  const bool root_ok = warp_find(s_dig, dlim, s_root, node_idx, g);
+  bool root_is_empty = true;
+  for (int j = 0; j < 32; ++j) root_is_empty = root_is_empty && s_root[j] == kEmptyRoot[j];
+  int status = nnum == 0 ? (root_is_empty ? EXCLUDED : INVALID)
+                         : (root_ok ? RUNNING : INVALID);
+  int reason = status == INVALID ? R_ROOT_MISSING : R_NONE;
+  int off = 0, key_pos = 0, vnode = 0, vstart = 0, vlen = 0;
+  bool ovf = false;
+  int staged = -1;  // STAGE_ROW: the node row the slab holds
+
+  for (int step = 0; step < a.max_steps && status == RUNNING; ++step) {
+    // the node row this step reads: node_idx, or in `ordered` the step's
+    // own row, with a latch where the two differ
+    int ri = node_idx;
+    if (a.mode == ORDERED) {
+      ri = min(step, a.d - 1);
+      if (node_idx != ri) ovf = true;
+    }
+    const bool row_sh = ri < dlim && L.staging != STAGE_NONE;
+    if (row_sh && L.staging == STAGE_ROW && staged != ri) {
+      g.sync();  // every lane is done with the slab's last row
+      stage_rows<G>(slab, L.s, nodes + ri * a.nodes_s1, 0, 1, n, lane);
+      cp_async_wait_all();
+      g.sync();
+      staged = ri;
+    }
+    const uint8_t* row = !row_sh ? nodes + ri * a.nodes_s1
+                         : L.staging == STAGE_ALL ? slab + ri * L.s
+                                                  : slab;
+    const int blen = ri < dlim ? s_lens[ri] : lens[ri * a.lens_s1];
+    const int c_nib = (key_pos >= 0 && key_pos < a.kn) ? (int)s_knib[key_pos] : 0;
+
+    const RowFetch f = {row, row_sh, L.s, n, n4};
+    Sel s = {};
+    if (hinted) {
+      if (off != 0) ovf = true;  // an inline child: node-level hints cannot describe it
+      const uint8_t* hrow = ri < dlim ? s_hint + ri * 36 : hints + ri * a.hints_s1;
+      if constexpr (G == 32) {  // the host launches hinted modes with G = 32
+        s = decode_hinted_warp(f, hrow, blen, c_nib, a.mode != HINTED4, ovf, lane);
+      }
+    } else if (a.mode == BOUNDED) {
+      s = decode_bounded_warp(f, off, blen, c_nib, ovf);
+    } else {
+      s = decode_exact_warp(f, off, blen, c_nib);
+    }
+
+    // ---- merge (mirrors ops/mpt._step_merge), warp-uniform ----
+    const bool is_branch = s.count == 17;
+    const bool is_pair = s.count == 2;
+    bool bad_node = !s.well_formed || (!is_branch && !is_pair);
+    const bool key_exhausted = key_pos >= klen;
+    const bool branch_found = is_branch && key_exhausted && s.i16_len > 0;
+    const bool branch_excl = is_branch && key_exhausted && s.i16_len == 0;
+    const bool take_child = is_branch && !key_exhausted;
+    const bool child_empty = take_child && !s.c_list && s.c_len == 0;
+
+    // read only where is_pair; with one proof per group, `pairskip`'s vote
+    // over the proofs walked together is this proof's own is_pair
+    Pair p = {false, true, false, 0};
+    if (is_pair) {
+      p = step_pair_warp(row, n, n4, s_knib, a.kn, klen, key_pos, s.i0_pay,
+                         s.i0_len, s.i0_list, g);
+    }
+    const bool leaf_found =
+        is_pair && p.is_leaf && p.match && key_pos + p.n_path == klen;
+    const bool leaf_excl = is_pair && p.is_leaf && !leaf_found;
+    const bool ext_bad = is_pair && !p.is_leaf && p.n_path == 0;
+    const bool ext_excl = is_pair && !p.is_leaf && !p.match;
+    const bool ext_child = is_pair && !p.is_leaf && p.match && !ext_bad;
+    bad_node = bad_node || (is_pair && !p.hp_ok) || ext_bad;
+
+    const bool has_child = (take_child && !child_empty) || ext_child;
+    const int cstart = take_child ? s.c_start : s.i1_start;
+    const int cpay = take_child ? s.c_pay : s.i1_pay;
+    const int cplen = take_child ? s.c_len : s.i1_len;
+    const bool clist = take_child ? s.c_list : s.i1_list;
+    const bool child_hash = has_child && !clist && cplen == 32;
+    const bool child_inline = has_child && clist;
+    const bool child_bad = has_child && !clist && cplen != 32;
+
+    int nxt = 0;
+    bool have_next = false;
+    if (child_hash) {
+      const int cp = clampi(cpay, 0, n4 - 1);
+      g.sync();
+      for (int j = lane; j < 32; j += G) s_expect[j] = (uint8_t)byte_at(row, n, cp + j);
+      g.sync();
+      have_next = warp_find(s_dig, dlim, s_expect, nxt, g);
+    }
+    const bool hash_fail = child_hash && !have_next;
+
+    const int new_status =
+        (bad_node || child_bad || hash_fail) ? INVALID
+        : (branch_found || leaf_found)       ? FOUND
+        : (branch_excl || child_empty || leaf_excl || ext_excl) ? EXCLUDED
+                                                                : RUNNING;
+    if (new_status == FOUND) {
+      vnode = node_idx;
+      vstart = leaf_found ? s.i1_pay : s.i16_pay;
+      vlen = leaf_found ? s.i1_len : s.i16_len;
+    }
+    key_pos = take_child ? key_pos + 1 : (ext_child ? key_pos + p.n_path : key_pos);
+    off = child_hash ? 0 : (child_inline ? cstart : off);
+    node_idx = child_hash ? nxt : node_idx;
+    reason = bad_node    ? R_MALFORMED
+             : child_bad ? R_BAD_CHILD_REF
+             : hash_fail ? R_HASH_MISMATCH
+                         : reason;
+    status = new_status;
+  }
+
+  if (lane < 6) {
+    const int word = lane == 0   ? (status == RUNNING ? INVALID : status)
+                     : lane == 1 ? vnode
+                     : lane == 2 ? vstart
+                     : lane == 3 ? vlen
+                     : lane == 4 ? (ovf ? 1 : 0)
+                                 : (status == RUNNING ? R_TRUNCATED : reason);
+    a.out[(long long)b * 6 + lane] = word;
+  }
+
+  // ---- the value, out of the terminal row ----
+  if (a.max_value_len > 0) {
+    const bool vsh = vnode < dlim && (L.staging == STAGE_ALL ||
+                                      (L.staging == STAGE_ROW && staged == vnode));
+    const uint8_t* vrow = !vsh ? nodes + vnode * a.nodes_s1
+                          : L.staging == STAGE_ALL ? slab + vnode * L.s
+                                                   : slab;
+    copy_value<G>(a.values + (long long)b * a.max_value_len, a.max_value_len, vrow,
+               vsh, L.s, n, clampi(vstart, 0, n4 - 1), vlen, lane);
+  }
+}
+
+int round16(long long x) { return (int)((x + 15) / 16 * 16); }
+
+// lanes a proof: a warp for the hinted modes' parallel decode, a smaller
+// group for the serial decodes, whose chain then serves 32 / G proofs an
+// issued instruction
+int mpt_walk_lanes_for(int mode) {
+  return (mode == HINTED || mode >= HINTED4) ? 32 : kSerialLanes;
+}
+
+// one proof's region; a group of G lanes may hold G / 32 of a warp's budget
+WarpLayout warp_layout(const WalkArgs& a) {
+  const bool hinted = a.mode == HINTED || a.mode >= HINTED4;
+  const int budget = kSlabBudget / (32 / mpt_walk_lanes_for(a.mode));
+  WarpLayout L = {};
+  L.s = round16(a.n);
+  const int tables = round16(32LL * a.d) + (hinted ? round16(36LL * a.d) : 0) +
+                     round16(4LL * a.d) + round16(a.kn) + 64;
+  const long long all = (long long)a.d * L.s;
+  long long slab = 0;
+  if (all + tables <= budget) {
+    L.staging = STAGE_ALL;
+    slab = all;
+  } else if ((long long)L.s + tables <= budget) {
+    L.staging = STAGE_ROW;
+    slab = L.s;
+  } else {
+    L.staging = STAGE_NONE;
+  }
+  L.dig = (int)slab;
+  L.hint = L.dig + round16(32LL * a.d);
+  L.lens = L.hint + (hinted ? round16(36LL * a.d) : 0);
+  L.knib = L.lens + round16(4LL * a.d);
+  L.root = L.knib + round16(a.kn);
+  L.expect = L.root + 32;
+  L.bytes = L.expect + 32;
+  return L;
+}
+
 }  // namespace
 
-extern "C" int zkp_mpt_walk(const WalkArgs* args, void* stream) {
+extern "C" int zkp_mpt_walk_thread(const WalkArgs* args, void* stream) {
   if (args->batch > 0) {
     const int threads = 32;
     const int blocks = (args->batch + threads - 1) / threads;
-    mpt_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+    mpt_walk_thread_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
   }
   return (int)cudaGetLastError();
+}
+
+// the warp kernel (the walk of every path)
+extern "C" int zkp_mpt_walk(const WalkArgs* args, void* stream) {
+  if (args->batch > 0) {
+    const WarpLayout L = warp_layout(*args);
+    const int lanes = mpt_walk_lanes_for(args->mode);
+    const int proofs = kWarps * 32 / lanes;  // a block
+    const size_t smem = (size_t)proofs * L.bytes;
+    const int blocks = (args->batch + proofs - 1) / proofs;
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (lanes == 32) {
+      if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            mpt_walk_warp_kernel<32>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+      }
+      mpt_walk_warp_kernel<32><<<blocks, kWarps * 32, smem, st>>>(*args, L);
+    } else {
+      if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            mpt_walk_warp_kernel<kSerialLanes>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+      }
+      mpt_walk_warp_kernel<kSerialLanes><<<blocks, kWarps * 32, smem, st>>>(*args, L);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// the warp kernel's shared memory for these arguments: out[0] the staging
+// (0 all rows, 1 one row at a time, 2 rows read from device memory),
+// out[1] lanes a proof, out[2] bytes a proof, out[3] bytes a block
+extern "C" void zkp_walk_layout(const WalkArgs* args, int* out) {
+  const WarpLayout L = warp_layout(*args);
+  out[0] = L.staging;
+  out[1] = mpt_walk_lanes_for(args->mode);
+  out[2] = L.bytes;
+  out[3] = kWarps * 32 / out[1] * L.bytes;
 }
 
 extern "C" int zkp_walk_args_size() { return (int)sizeof(WalkArgs); }

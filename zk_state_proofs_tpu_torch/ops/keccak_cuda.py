@@ -1,9 +1,12 @@
 """Kernels K1 and K3: batched Keccak-256 on the card (csrc/keccak.cu).
 
 K1 replaces `zk_state_proofs_tpu.ops.keccak_pallas._keccak_kernel` (entered
-there through `keccak256_tpu`). One thread hashes one message from its raw
-row bytes and length, padding inside the kernel; see the source for what
-bounds it. K3 replaces `_keccak_kernel_raw` (entered through
+there through `keccak256_tpu`). A warp hashes one message from its raw row
+bytes and length, padding inside the kernel; see the source for the design
+and what bounds it. `keccak256_cuda_thread` launches the
+one-thread-per-message kernel that came before it, kept only as the
+baseline of a same-run A/B (`chip_smoke.py`) and for the kernel tests; no
+path calls it. K3 replaces `_keccak_kernel_raw` (entered through
 `keccak256_tpu_raw`): the same digests, with every lane read as one
 little-endian 8-byte word and the padding applied by masks. As in the JAX
 package, K3 is not on the verify path.
@@ -21,13 +24,11 @@ from . import keccak
 from ._build import check_launch, load_library
 
 LAUNCHES = {"keccak256": 0, "keccak256_raw": 0}
+THREAD_LAUNCHES = {"keccak256": 0}  # keccak256_cuda_thread's
 
 
-def keccak256_cuda(rows, lens):
-    """rows u8 [U, W] (last dim contiguous; any row stride), lens i32 [U]
-    -> digests u8 [U, 32] of each row's first lens[i] bytes."""
-    if rows.device.type == "cpu":
-        return keccak.keccak256(rows, lens)
+def _rows_launch(entry, counts, rows, lens):
+    """Check rows and lens, launch the C entry point `entry`, count it."""
     if rows.device.type != "cuda":
         raise ValueError(f"keccak256_cuda: unsupported device {rows.device}")
     if rows.dtype != torch.uint8 or rows.ndim != 2:
@@ -44,11 +45,25 @@ def keccak256_cuda(rows, lens):
         return out
     lib = load_library().lib
     stream = torch.cuda.current_stream(rows.device).cuda_stream
-    rc = lib.zkp_keccak256_rows(rows.data_ptr(), rows.stride(0), rows.shape[1],
-                                lens.data_ptr(), u, out.data_ptr(), stream)
+    rc = getattr(lib, entry)(rows.data_ptr(), rows.stride(0), rows.shape[1],
+                             lens.data_ptr(), u, out.data_ptr(), stream)
     check_launch(rc, "keccak256 kernel")
-    LAUNCHES["keccak256"] += 1
+    counts["keccak256"] += 1
     return out
+
+
+def keccak256_cuda(rows, lens):
+    """rows u8 [U, W] (last dim contiguous; any row stride), lens i32 [U]
+    -> digests u8 [U, 32] of each row's first lens[i] bytes."""
+    if rows.device.type == "cpu":
+        return keccak.keccak256(rows, lens)
+    return _rows_launch("zkp_keccak256_rows", LAUNCHES, rows, lens)
+
+
+def keccak256_cuda_thread(rows, lens):
+    """keccak256_cuda on the one-thread-per-message kernel (CUDA tensors
+    only): the same digests, for the A/B against the warp sponge."""
+    return _rows_launch("zkp_keccak256_rows_thread", THREAD_LAUNCHES, rows, lens)
 
 
 def keccak256_cuda_raw(data, lengths):

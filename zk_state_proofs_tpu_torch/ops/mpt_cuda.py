@@ -8,7 +8,11 @@ tries) and its variants `hinted4`, `hinted1`, `ordered` and `pairskip`
 `exact` (the fallback of all of them).
 
 `walk_lanes` is the kernel's wrapper (a CPU tensor takes the plain version,
-`ops.mpt.walk_kernel_plain`); `walk_batch_cuda` and
+`ops.mpt.walk_kernel_plain`): it launches the warp-per-proof kernel, whose
+design the source describes. `walk_lanes_thread` launches the
+one-thread-per-proof kernel that came before it, kept only as the baseline
+of a same-run A/B (`chip_smoke.py`) and for the kernel tests; no path
+calls it. `walk_batch_cuda` and
 `walk_batch_cuda_segmented` are the ports of `walk_batch_pallas` and
 `walk_batch_pallas_segmented`. When any proof latches the overflow flag in
 `hinted` or `bounded` mode, the whole batch is walked again in `exact`, as
@@ -27,6 +31,7 @@ from ._build import check_launch, load_library
 _MODE_CODE = {"exact": 0, "hinted": 1, "bounded": 2, "hinted4": 3,  # WalkArgs.mode
               "hinted1": 4, "ordered": 5, "pairskip": 6}
 LAUNCHES = dict.fromkeys(_MODE_CODE, 0)
+THREAD_LAUNCHES = dict.fromkeys(_MODE_CODE, 0)  # walk_lanes_thread's
 
 
 class WalkArgs(ctypes.Structure):
@@ -67,10 +72,11 @@ def _check(name, t, dtype, shape, device):
 
 
 def _word_aligned(nodes):
-    """nodes as `hinted1`'s word loads need them: N a multiple of 4 and
-    every row 4-byte aligned; else a copy zero-padded to N4 (as
-    `walk_batch_pallas` pads). Bytes past N read 0 either way, so the
-    results do not change."""
+    """nodes as the thread kernel's `hinted1` word loads need them: N a
+    multiple of 4 and every row 4-byte aligned; else a copy zero-padded to
+    N4 (as `walk_batch_pallas` pads). Bytes past N read 0 either way, so
+    the results do not change. (The warp kernel reads `hinted1`'s words
+    from its shared-memory slab and needs no copy.)"""
     b, d, n = nodes.shape
     if (n % 4 == 0 and nodes.stride(0) % 4 == 0 and nodes.stride(1) % 4 == 0
             and nodes.data_ptr() % 4 == 0):
@@ -80,16 +86,10 @@ def _word_aligned(nodes):
     return out
 
 
-def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
-               key_nibbles, key_lens, max_value_len: int, max_steps: int,
-               hints=None):
-    """One K2 launch: every proof walked in `mode` (one of
-    `ops.mpt.WALK_MODES`), without a fallback. Inputs and outputs as
-    `ops.mpt.walk_kernel_plain`: (out i32 [B, 6], values u8 [B, mvl])."""
-    if nodes.device.type == "cpu":
-        return mpt.walk_kernel_plain(mode, nodes, node_lens, num_nodes, digests,
-                                     roots, key_nibbles, key_lens,
-                                     max_value_len, max_steps, hints)
+def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
+               key_lens, max_value_len, max_steps, hints, aligned):
+    """Check the inputs and allocate the outputs of one launch: (WalkArgs,
+    out, values), or (None, out, values) for an empty batch."""
     if nodes.device.type != "cuda":
         raise ValueError(f"walk_lanes: unsupported device {nodes.device}")
     if mode not in mpt.WALK_MODES:
@@ -113,13 +113,13 @@ def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
         _check("hints", hints, torch.uint8, (b, d, 36), dev)
     if n < 1 or kn < 1 or max_value_len < 0 or max_steps < 0:
         raise ValueError("walk_lanes: empty node or key axis, or negative sizes")
-    if mode == "hinted1":
+    if aligned and mode == "hinted1":
         nodes = _word_aligned(nodes)
         n = nodes.shape[2]
     out = torch.empty((b, 6), dtype=torch.int32, device=dev)
     values = torch.empty((b, max_value_len), dtype=torch.uint8, device=dev)
     if b == 0:
-        return out, values
+        return None, out, values
     args = WalkArgs(
         nodes.data_ptr(), nodes.stride(0), nodes.stride(1),
         node_lens.data_ptr(), node_lens.stride(0), node_lens.stride(1),
@@ -132,14 +132,67 @@ def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
         hints.stride(0) if hinted else 0, hints.stride(1) if hinted else 0,
         out.data_ptr(), values.data_ptr(),
         b, d, n, kn, max_steps, max_value_len, _MODE_CODE[mode])
+    args.keep = nodes  # a padded copy lives as long as the struct
+    return args, out, values
+
+
+def _launch(entry, counts, mode, *tensors, aligned):
+    """One launch of the C entry point `entry` on walk_lanes' inputs,
+    counted in `counts`; (out, values) as walk_lanes returns them."""
+    args, out, values = _walk_args(mode, *tensors, aligned=aligned)
+    if args is None:
+        return out, values
     lib = load_library().lib
     if lib.zkp_walk_args_size() != ctypes.sizeof(WalkArgs):
         raise RuntimeError("WalkArgs layout differs between Python and CUDA")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.zkp_mpt_walk(ctypes.byref(args), stream)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    rc = getattr(lib, entry)(ctypes.byref(args), stream)
     check_launch(rc, f"mpt walk kernel ({mode})")
-    LAUNCHES[mode] += 1
+    counts[mode] += 1
     return out, values
+
+
+def walk_layout(mode: str, nodes, node_lens, num_nodes, digests, roots,
+                key_nibbles, key_lens, max_value_len: int, max_steps: int,
+                hints=None):
+    """How walk_lanes would hold these proofs in shared memory (CUDA
+    tensors): {"staging": "all rows" | "one row at a time" | "device
+    memory", "lanes": lanes a proof, "proof_bytes": ..., "block_bytes":
+    ...}. Launches nothing."""
+    args, _, _ = _walk_args(mode, nodes, node_lens, num_nodes, digests, roots,
+                            key_nibbles, key_lens, max_value_len, max_steps,
+                            hints, aligned=False)
+    if args is None:
+        return None
+    got = (ctypes.c_int * 4)()
+    load_library().lib.zkp_walk_layout(ctypes.byref(args), got)
+    return {"staging": ("all rows", "one row at a time", "device memory")[got[0]],
+            "lanes": got[1], "proof_bytes": got[2], "block_bytes": got[3]}
+
+
+def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
+               key_nibbles, key_lens, max_value_len: int, max_steps: int,
+               hints=None):
+    """One K2 launch: every proof walked in `mode` (one of
+    `ops.mpt.WALK_MODES`), without a fallback. Inputs and outputs as
+    `ops.mpt.walk_kernel_plain`: (out i32 [B, 6], values u8 [B, mvl])."""
+    if nodes.device.type == "cpu":
+        return mpt.walk_kernel_plain(mode, nodes, node_lens, num_nodes, digests,
+                                     roots, key_nibbles, key_lens,
+                                     max_value_len, max_steps, hints)
+    return _launch("zkp_mpt_walk", LAUNCHES, mode, nodes, node_lens, num_nodes,
+                   digests, roots, key_nibbles, key_lens, max_value_len,
+                   max_steps, hints, aligned=False)
+
+
+def walk_lanes_thread(mode: str, nodes, node_lens, num_nodes, digests, roots,
+                      key_nibbles, key_lens, max_value_len: int, max_steps: int,
+                      hints=None):
+    """walk_lanes on the one-thread-per-proof kernel (CUDA tensors only):
+    the same results, for the A/B against the warp kernel."""
+    return _launch("zkp_mpt_walk_thread", THREAD_LAUNCHES, mode, nodes,
+                   node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
+                   max_value_len, max_steps, hints, aligned=True)
 
 
 def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
