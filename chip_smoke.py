@@ -22,7 +22,12 @@ would call:
   * the block path: `verify_block_transactions` on that 256-tx block and on
     mainnet block 46147 (fixtures/, under its pinned transactionsRoot), and
     `verify_block_receipts` with ERC20 extraction on bench_configs.py's
-    config-3 block (`synthetic_block(128, seed=3)`).
+    config-3 block (`synthetic_block(128, seed=3)`);
+  * the sweeps of BASELINE config 5 (bench_configs.py
+    `config5_sweep_with_root_reduction`): 65,536 accounts, batches of 4096,
+    1,048,576 proofs through `sweep_resident_epochs`, and the other sweep
+    forms; then trie roots on the card (`compute_root`) and the circuit
+    entry points.
 
 Phases, each printing a line:
 
@@ -76,10 +81,32 @@ Phases, each printing a line:
      batch's results from the two kernels equal bit for bit. Printed as
      lines and as one JSON object {"ab": [...]}; before them, K2's dynamic
      shared memory and staging on the headline, slot and transaction
-     batches.
+     batches;
+ 15. sweeps at config 5's size: the 65,536-account world (every node
+     shorter than N, so the epoch counter lands on padding), the epoch
+     sweep (16 epochs, 1,048,576 proofs, after a warm-up with another salt:
+     every proof FOUND), the fused resident sweep over 256 random batches,
+     the streamed resident sweep (256 batches; 16 with materialize=False),
+     sweep_entries over 256 freshly packed batches (pool-stream, prefetch
+     2), sweep over a replicated batch; the guarded `exact` walk on no
+     honest batch; a mixed 4096-proof witness (absent keys, tampered
+     leaves, inline proofs) through every form, each equal to the plain
+     route on the card, the guarded `exact` walk run; the batch loops of
+     the epoch, fused and entries sweeps under
+     torch.cuda.set_sync_debug_mode("error"); proofs/s per form, pack /
+     dispatch / drain seconds, launches per batch and the device-busy share
+     of an epoch batch; the guard kernel against its plain version;
+ 16. roots and circuits: compute_root on the receipt trie of
+     synthetic_block(256, seed=5) and the transaction trie of the 256-tx
+     block equals their receiptsRoot and transactionsRoot (and the plain
+     reduction's every digest); run_merkle_circuit_batch over that block's
+     256 borsh inputs commits the encoded txs; run_storage_circuit over one
+     storage_world account's 8 slots commits their values, an absent slot
+     raises MissingKeyError.
 
 K1 is a warp per message and K2 a warp per proof over a shared-memory slab
-(csrc/keccak.cu, csrc/mpt_walk.cu); the build phase prints ptxas's
+(csrc/keccak.cu, csrc/mpt_walk.cu); K2's `exact` re-run is decided on the
+card by a guard kernel (csrc/mpt_walk.cu); the build phase prints ptxas's
 registers and spills (and static shared memory) for each kernel. Any failed check exits
 non-zero. The next-to-last line is a JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Uses no JAX and nothing of the JAX
@@ -102,11 +129,16 @@ try:
     from zk_state_proofs_tpu_torch import native
     from zk_state_proofs_tpu_torch.models import (BatchVerifier, decode_receipt_value,
                                                   extract_erc20_transfers,
+                                                  replicated_batches, run_merkle_circuit,
+                                                  run_merkle_circuit_batch,
+                                                  run_storage_circuit, sweep, sweep_entries,
+                                                  sweep_resident, sweep_resident_epochs,
                                                   verify_block_receipts,
                                                   verify_block_transactions,
                                                   verify_merkle_batch, verify_storage_batch,
                                                   verify_storage_grouped)
     from zk_state_proofs_tpu_torch.models.blocks import _bucket_for
+    from zk_state_proofs_tpu_torch.models.sweep import epoch_batch, epoch_tables, epoch_windows
     from zk_state_proofs_tpu_torch.models.verifier import (_slot_key_nibbles,
                                                            _storage_core_grouped)
     from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
@@ -114,7 +146,9 @@ try:
     from zk_state_proofs_tpu_torch.ops._build import load_library
     from zk_state_proofs_tpu_torch.ops.account import decode_account
     from zk_state_proofs_tpu_torch.ops.rlp import bytes_to_nibbles_device
-    from zk_state_proofs_tpu_torch.oracle import EthTrie, keccak256 as oracle_keccak, rlp
+    from zk_state_proofs_tpu_torch.ops.trie_build import compute_root
+    from zk_state_proofs_tpu_torch.oracle import (EthTrie, MissingKeyError,
+                                                  keccak256 as oracle_keccak, rlp)
     from zk_state_proofs_tpu_torch.utils.config import BucketConfig
     from zk_state_proofs_tpu_torch.utils.profiling import (cuda_timer, device_profile,
                                                            queued_timer)
@@ -123,9 +157,11 @@ try:
         get_all_receipt_proof_inputs, get_all_transaction_proof_inputs,
         get_transaction_proof_input, host_item_offsets, load_fixture, pack_proofs,
         synthetic_block)
+    from zk_state_proofs_tpu_torch.witness.trie_plan import plan_index_trie
+    from zk_state_proofs_tpu_torch.witness.types import StorageProofInput
     from zk_state_proofs_tpu_torch.witness_bridge import (
-        BATCH_FIELDS, POOL_FIELDS, account_entries, packed_to_tensors, storage_world,
-        tx_geometry_batch, tx_geometry_block)
+        BATCH_FIELDS, POOL_FIELDS, account_entries, default_hasher, packed_to_tensors,
+        storage_world, sweep_world, tx_geometry_batch, tx_geometry_block)
 except ImportError as exc:  # run outside a checkout of the repo
     print(f"FAIL: the repository's packages are not importable here: {exc}")
     sys.exit(1)
@@ -138,6 +174,14 @@ TX_PROOFS = 4096         # proofs in the transaction-geometry batch
 RECEIPT_BLOCK = (128, 3)  # synthetic_block(num_txs, seed): bench_configs.py config 3
 PLAIN_ITERS = 3           # timed iterations of a plain path at transaction geometry
 VARIANTS = ("hinted4", "hinted1", "ordered", "pairskip")  # K2's variants of hinted
+# bench_configs.py config5_sweep_with_root_reduction (quick=False): 65,536
+# accounts, batches of 4096, 256 batches = 16 epochs = 1,048,576 proofs
+SWEEP_ACCOUNTS = 65536
+SWEEP_BATCH = 4096
+SWEEP_BATCHES = 256
+SWEEP_SEED = 5            # the index batches' numpy Generator
+MIXED_BATCH = 1024        # batches over the 4096-proof mixed witness
+ROOT_BLOCK = (256, 5)     # synthetic_block(num_txs, seed): config 5's receipt-trie root
 # How device times are taken. torch.profiler lost kernel records in some
 # windows of this script's runs (fewer kernels than launched), so device
 # times come from CUDA events around calls queued behind a spin kernel.
@@ -218,7 +262,7 @@ def main() -> None:
     kernel = "?"
     for line in kl.build_log.splitlines():
         if "Compiling entry function" in line:  # mangled: ...20mpt_walk_warp_kernelILi32E...
-            found = re.search(r"(?<=\d)((?:mpt_walk|keccak256)_[a-z0-9_]*?_kernel)(?:ILi(\d+)E)?", line)
+            found = re.search(r"(?<=\d)((?:mpt_walk|keccak256|walk)_[a-z0-9_]*?_kernel)(?:ILi(\d+)E)?", line)
             kernel = (found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "")
                       if found else line.split("'")[1])
         elif "registers" in line or "spill" in line:
@@ -302,11 +346,11 @@ def main() -> None:
     honest = mpt_cuda.walk_batch_cuda(*a, 128, max_steps, hints=h, with_reasons=True)
     corrupt = (h.to(torch.int32) + 7).remainder(255).to(torch.uint8)
     compare_k2(a, corrupt, "corrupted hints")
-    exact_before = mpt_cuda.LAUNCHES["exact"]
+    walked = mpt_cuda.exact_walked(dev)
     *res, ovf = mpt_cuda.walk_batch_cuda(*a, 128, max_steps, hints=corrupt,
                                          with_reasons=True, with_overflow=True)
     check(bool((ovf != 0).all()), "corrupted hints did not latch the overflow flag")
-    check(mpt_cuda.LAUNCHES["exact"] == exact_before + 1,
+    check(mpt_cuda.exact_walked(dev) == walked + 1,
           "corrupted hints did not route to the exact kernel")
     check(max_err(res, honest) == 0, "exact re-run differs from the honest-hint run")
     log(f"[4 K2] walk kernel == plain in modes hinted and exact (six words "
@@ -337,7 +381,7 @@ def main() -> None:
     torch.cuda.synchronize()
     serve_s = time.time() - t0
     launches = read_counts()
-    for name in ("keccak256", "hinted", "exact"):
+    for name in ("keccak256", "hinted", "guard", "exact", "exact_walked"):
         check(launches[name] > 0, f"the main path launched the {name} kernel no time")
     head = results[0]
     check(head.status.shape == (N_ACCOUNTS,) and head.values.shape == (N_ACCOUNTS, 128),
@@ -442,41 +486,61 @@ def main() -> None:
     blk = phase_blocks(txw, repo, dev)
     phase_block_timings(hctx, txw, hm["tx_result"], card)
     ab = phase_ab(head_segs, max_steps, slot_args, txw, pn, pl, psegs, card)
+    kn = batch[4].shape[1]
+    bound = {"k1": keccak_bound(pl, psegs), "k3": keccak_bound(pl, ((pn.shape[0], pn.shape[1]),)),
+             "hinted": walk_bound(batch[0], batch[1], batch[2], kn, 128, True),
+             "exact": walk_bound(batch[0], batch[1], batch[2], kn, 128, False)}
+    tx_block = txw["block"]
+    # the earlier phases' witnesses are not needed past here
+    del txw, hctx, hm["tx_result"], head_segs, ht, batch, pool, pn, pl, dig_k, dig_seg
+    del dig_plain, dig_table, hint_table, slot_args, adv_ctx, adv_args, nodes, pnodes
+    torch.cuda.empty_cache()
+
+    # ---- 15-16. the sweeps, roots and circuits ----------------------------
+    swp = phase_sweeps(card, dev)
+    rc = phase_roots_circuits(tx_block, card, dev)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "zk_state_proofs_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
     # ---- the kernels line -------------------------------------------------
     # each main path's launches, counted from zero over its own run (phases
-    # 5, 9, 11 and 12); `launches` is their sum
+    # 5, 9, 11, 12, 15 and 16); `launches` is their sum. K2 `exact` also
+    # gives the guarded launches that walked (`walked`, the device tally).
     by_path = {"accounts": launches, "storage": sto["launches"],
-               "hint_modes": hm["launches"], "blocks": blk["launches"]}
-    headline_lens = (batch[0], batch[1], batch[2])
+               "hint_modes": hm["launches"], "blocks": blk["launches"],
+               "sweeps": swp["launches"], "roots_circuits": rc["launches"]}
     src = "zk_state_proofs_tpu_torch/csrc/"
     kernels = [kernel_row(
         "keccak256", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:122",
-        by_path, "keccak256", k1_err, k1_ms, k1_plain_ms, keccak_bound(pl, psegs))]
+        by_path, "keccak256", k1_err, k1_ms, k1_plain_ms, bound["k1"])]
     for mode in ("hinted", "exact"):
         kernels.append(kernel_row(
             f"mpt_walk_{mode}", src + "mpt_walk.cu",
             "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, mode,
-            k2_err[mode], k2[mode][0], k2[mode][1],
-            walk_bound(*headline_lens, batch[4].shape[1], 128, mode == "hinted")))
+            k2_err[mode], k2[mode][0], k2[mode][1], bound[mode]))
+    walked = {path: counts["exact_walked"] for path, counts in by_path.items()}
+    kernels[-1].update(walked=sum(walked.values()), walked_by_path=walked)
     for mode in VARIANTS:
         kernels.append(kernel_row(
             f"mpt_walk_{mode}", src + "mpt_walk.cu",
             "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, mode,
-            hm["err"][mode], k2[mode][0], k2[mode][1],
-            walk_bound(*headline_lens, batch[4].shape[1], 128, True)))
+            hm["err"][mode], k2[mode][0], k2[mode][1], bound["hinted"]))
     kernels.append(kernel_row(
         "mpt_walk_bounded", src + "mpt_walk.cu",
         "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, "bounded",
         bnd["err"], sto["bounded_ms"], sto["bounded_plain_ms"], sto["bounded_bound"]))
+    # the guard of the `exact` re-run: the predicate of the TPU path's
+    # jax.lax.cond, which has no Pallas kernel
+    g = swp["guard"]
+    kernels.append(kernel_row(
+        "mpt_walk_guard", src + "mpt_walk.cu", "zk_state_proofs_tpu/ops/mpt_pallas.py:981",
+        by_path, "guard", g["err"], g["ms"], g["plain_ms"], g["bound"]))
+    kernels[-1]["library_ms"] = g["library_ms"]
     # K3 is on no main path (as in the JAX package): 0 launches there
     kernels.append(kernel_row(
         "keccak256_raw", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:211",
-        by_path, "keccak256_raw", k3["err"], k3["ms"], k3["plain_ms"],
-        keccak_bound(pl, ((pn.shape[0], pn.shape[1]),))))
+        by_path, "keccak256_raw", k3["err"], k3["ms"], k3["plain_ms"], bound["k3"]))
     log(json.dumps({"ab": ab}))
     log(f"[bound] the least time for each kernel's work: bytes over "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, 32-bit integer operations over "
@@ -487,15 +551,277 @@ def main() -> None:
         flush=True)
 
 
+def mixed_sweep_witness(w):
+    """A 4096-proof witness over the sweep world's trie, shuffled: 3960
+    honest accounts, 64 absent keys (EXCLUDED), 64 tampered leaves
+    (INVALID) and 8 proofs through inline nodes (which latch the hinted
+    walk, so the guarded `exact` walk runs)."""
+    rng = np.random.default_rng(11)
+    rows = rng.permutation(w.n_accounts)
+    entries = w.entries(rows[:3960])
+    for i in range(64):
+        key = oracle_keccak(b"smoke-sweep-absent-%d" % i)
+        entries.append((w.root, w.trie.get_proof(key), key))
+    for r in rows[3960:4024]:
+        proof = list(w.proofs[r])
+        proof[-1] = proof[-1][:-1] + bytes([proof[-1][-1] ^ 1])
+        entries.append((w.root, proof, w.keys[r]))
+    entries += adversarial_entries(w.entries(range(16)))[1][:8]
+    return [entries[i] for i in rng.permutation(len(entries))]
+
+
+def form_line(name, res):
+    return (f"{name}: {res.total} proofs in {res.batches} batches, {res.seconds:.4f} s = "
+            f"{res.proofs_per_sec:,.0f} proofs/s (counts_only); pack "
+            f"{res.pack_seconds:.4f} s, dispatch {res.dispatch_seconds:.4f} s, drain "
+            f"{res.drain_seconds:.4f} s")
+
+
+def phase_sweeps(card, dev):
+    """Phase 15: config 5's sweeps on the card, every form; a mixed
+    witness through every form against the plain route; launches per
+    batch, the device-busy share of an epoch batch, the guard kernel."""
+    t0 = time.time()
+    w = sweep_world(SWEEP_ACCOUNTS)
+    world_s = time.time() - t0
+    t0 = time.time()
+    gp = w.pack()
+    pack_s = time.time() - t0
+    n = gp.nodes.shape[2]
+    longest = int(gp.node_lens.max())
+    check(longest < n, f"a sweep node is {longest} B long, not under N = {n}: the epoch "
+                       f"counter would land on a node byte")
+    depth = {int(d): int(c) for d, c in enumerate(np.bincount(gp.num_nodes)) if c}
+    log(f"[witness] config 5 sweep world: {w.n_accounts} accounts built in {world_s:.1f} s, "
+        f"packed in {pack_s:.2f} s; nodes {tuple(gp.nodes.shape)} "
+        f"({gp.nodes.nbytes / 1e6:.1f} MB), pool {tuple(gp.pool()[0].shape)}, longest node "
+        f"{longest} of {n} B, proofs by depth {depth}")
+    steps = w.max_nodes
+    kw = dict(max_steps=steps, device=dev)
+    epochs = SWEEP_BATCHES * SWEEP_BATCH // w.n_accounts
+    rng = np.random.default_rng(SWEEP_SEED)
+    # a fixed pool-row bucket for the streamed entries (bench_configs.py:577-583)
+    probe = pack_proofs(next(w.entry_batches(1, SWEEP_BATCH, np.random.default_rng(5))),
+                        max_nodes=steps, node_len=n)
+    pool_rows = -(-int(probe.pool()[0].shape[0] * 1.125) // 128) * 128
+    total = SWEEP_BATCHES * SWEEP_BATCH
+
+    # the main path of this phase, counted from zero
+    zero_counts()
+    res = {}
+    sweep_resident_epochs(gp, epochs, SWEEP_BATCH, salt=101, forbid_sync=True, **kw)
+    before = dict(mpt_cuda.LAUNCHES)
+    res["epochs"] = sweep_resident_epochs(gp, epochs, SWEEP_BATCH, salt=7, forbid_sync=True,
+                                          **kw)
+    per_batch = {k: (mpt_cuda.LAUNCHES[k] - before[k]) / res["epochs"].batches
+                 for k in before if mpt_cuda.LAUNCHES[k] != before[k]}
+    sweep_resident(gp, w.index_batches(16, SWEEP_BATCH, rng), fused=True, **kw)
+    res["fused"] = sweep_resident(gp, w.index_batches(SWEEP_BATCHES, SWEEP_BATCH, rng),
+                                  fused=True, forbid_sync=True, **kw)
+    res["streamed"] = sweep_resident(gp, w.index_batches(SWEEP_BATCHES, SWEEP_BATCH, rng), **kw)
+    res["streamed, pool gathers"] = sweep_resident(
+        gp, w.index_batches(16, SWEEP_BATCH, rng), materialize=False, **kw)
+    sweep_entries(w.entry_batches(4, SWEEP_BATCH, rng), steps, n, pool_rows=pool_rows,
+                  device=dev)
+    res["entries"] = sweep_entries(w.entry_batches(SWEEP_BATCHES, SWEEP_BATCH, rng), steps, n,
+                                   pool_rows=pool_rows, prefetch=2, forbid_sync=True,
+                                   device=dev)
+    res["replicated"] = sweep(replicated_batches(probe, 16), **kw)
+    for name, r in res.items():
+        want = {"epochs": total, "fused": total, "streamed": total, "entries": total,
+                "streamed, pool gathers": 16 * SWEEP_BATCH, "replicated": 16 * SWEEP_BATCH}
+        check(r.total == want[name] and r.found == r.total,
+              f"sweep {name}: {r.found} of {r.total} proofs FOUND, {want[name]} expected")
+    check(mpt_cuda.exact_walked(dev) == 0, "an honest sweep batch walked the guarded exact kernel")
+    for name, r in res.items():
+        log(f"[15 sweeps] {form_line(name, r)} on {card}")
+
+    # the mixed witness through every form, against the plain route on the card
+    mixed = mixed_sweep_witness(w)
+    mp = pack_proofs(mixed, max_nodes=max(len(p) for _, p, _ in mixed), node_len=n)
+    t = packed_to_tensors(mp, dev)
+    status = plain_pooled([t[k] for k in BATCH_FIELDS], [t[k] for k in POOL_FIELDS],
+                          t["pool_hints"], max_value_len=128, max_steps=steps)[0].cpu().numpy()
+    count = lambda st: [int((st == c).sum()) for c in (mpt.FOUND, mpt.EXCLUDED, mpt.INVALID)]
+    summed = lambda parts: [sum(c) for c in zip(*(count(status[p]) for p in parts))]
+    check(count(status) == [3960 + 8, 64, 64], f"the mixed witness on the plain route: {count(status)}")
+    mrng = np.random.default_rng(SWEEP_SEED + 1)
+    sels = [mrng.permutation(mp.batch)[:MIXED_BATCH] for _ in range(8)]
+    windows = [slice(s, s + MIXED_BATCH) for s in epoch_windows(mp.batch, MIXED_BATCH)]
+    mixed_batch = pack_proofs([mixed[i] for i in sels[0]], max_nodes=mp.nodes.shape[1], node_len=n)
+    mk = dict(max_steps=steps, device=dev)
+    got = {
+        "epochs": (sweep_resident_epochs(mp, 2, MIXED_BATCH, salt=3, forbid_sync=True, **mk),
+                   summed(windows * 2)),
+        "fused": (sweep_resident(mp, iter(sels), fused=True, forbid_sync=True, **mk),
+                  summed(sels)),
+        "streamed": (sweep_resident(mp, iter(sels[:4]), **mk), summed(sels[:4])),
+        "streamed, pool gathers": (sweep_resident(mp, iter(sels[:4]), materialize=False, **mk),
+                                   summed(sels[:4])),
+        "replicated": (sweep(replicated_batches(mixed_batch, 2), **mk), summed(sels[:1] * 2)),
+        "replicated, no pool": (sweep(replicated_batches(mixed_batch, 2), dedup=False, **mk),
+                                summed(sels[:1] * 2))}
+    for dedup in (True, False):
+        got[f"entries, dedup={dedup}"] = (
+            sweep_entries(([mixed[i] for i in s] for s in sels[:4]), mp.nodes.shape[1], n,
+                          dedup=dedup, forbid_sync=True, device=dev),
+            summed(sels[:4]))
+    walked = mpt_cuda.exact_walked(dev)
+    for name, (r, want) in got.items():
+        check([r.found, r.excluded, r.invalid] == want,
+              f"mixed witness, sweep form {name}: {[r.found, r.excluded, r.invalid]}, the "
+              f"plain route {want}")
+    check(walked > 0, "the mixed witness did not walk the guarded exact kernel")
+    launches = read_counts()
+    for name in ("keccak256", "hinted", "bounded", "guard", "exact", "exact_walked"):
+        check(launches[name] > 0, f"the sweeps launched the {name} kernel no time")
+    log(f"[15 sweeps] the epoch, fused and entries batch loops ran under "
+        f"torch.cuda.set_sync_debug_mode('error'); every honest proof FOUND; no honest batch "
+        f"walked exact; the mixed witness ({count(status)} FOUND / EXCLUDED / INVALID on the "
+        f"plain route) gave the plain route's counts in every form ({', '.join(got)}), the "
+        f"guarded exact walk ran {walked} times; launches {launches}")
+
+    # per batch: launches, device time, the device-busy share of an epoch batch
+    tables = epoch_tables(gp, dev)
+    starts = [int(x) for x in epoch_windows(gp.batch, SWEEP_BATCH)]
+
+    def one(i):
+        s0 = starts[i % len(starts)]
+        return epoch_batch(tables, s0, SWEEP_BATCH, i & 0xFF, 128, steps, dev)
+
+    dev_us = lower(device_us(one), device_us(one))
+    prof = device_profile(one, 10)
+    wall_ms = 1e3 * res["epochs"].seconds / res["epochs"].batches
+    busy = "not measured" if dev_us is None else f"{100 * dev_us / 1e3 / wall_ms:.1f}%"
+    top = "; ".join(f"{nm[:40]} {ms * 1e3:.1f} us x{c:.0f}" for nm, ms, c in prof["top"])
+    log(f"[15 time] epoch batch of {SWEEP_BATCH} proofs {tuple(tables['nodes'][:SWEEP_BATCH].shape)}: "
+        f"host {wall_ms:.4f} ms a batch in the sweep, device {us_text(dev_us)} a batch "
+        f"({DEVICE_TIMING}): device busy {busy} of the sweep's time; wrapper launches a batch "
+        f"{per_batch}; torch.profiler over 10 batches: {prof['launches']:.0f} device launches "
+        f"a batch, busy {prof['busy_ms']:.4f} ms, top {top} on {card}")
+    del tables
+
+    return {"launches": launches, "guard": guard_check(card, dev)}
+
+
+def guard_check(card, dev):
+    """The guard kernel against its plain version on walk outputs of the
+    sweep's batch size (no flag set, one set, every one set); its times,
+    the plain version's and torch.any's, on the honest output."""
+    gen = torch.Generator().manual_seed(3)
+    base = torch.randint(0, 1 << 20, (SWEEP_BATCH, 6), generator=gen, dtype=torch.int32)
+    base[:, 4] = 0
+    outs = [base.clone() for _ in range(3)]
+    outs[1][SWEEP_BATCH // 3, 4] = 1
+    outs[2][:, 4] = 1
+    err = 0
+    for o in outs:
+        o = o.to(dev)
+        err = max(err, max_err([mpt_cuda.walk_guard(o)], [mpt_cuda.guard_plain(o)]))
+    check(err == 0, f"the guard kernel differs from its plain version (max abs err {err})")
+    honest = outs[0].to(dev)
+    ms = cuda_timer(lambda i: mpt_cuda.walk_guard(honest), TIMED_ITERS)
+    plain_ms = cuda_timer(lambda i: mpt_cuda.guard_plain(honest), TIMED_ITERS)
+    library_ms = cuda_timer(lambda i: honest[:, 4].any(), TIMED_ITERS)
+    dev_us = device_us(lambda i: mpt_cuda.walk_guard(honest))
+    bound = least_time(4 * SWEEP_BATCH + 4, SWEEP_BATCH)
+    log(f"[15 guard] the guard kernel == plain on {SWEEP_BATCH}-proof walk outputs with no, "
+        f"one and every flag set; one launch {ms:.4f} ms (device {us_text(dev_us)}), plain "
+        f"{plain_ms:.4f} ms, torch.any {library_ms:.4f} ms, bound {bound[0]:.6f} ms "
+        f"({bound[1]}) on {card}")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound": bound}
+
+
+def storage_circuit_input(w, a):
+    """The storage guest's input for account row `a` of a StorageWorld (its
+    account proof and slot proofs), and one for a slot absent from its
+    storage trie, with the trie's proof of that absence."""
+    root, account_proof, addr_key = w.account_entries[a]
+    rows = np.flatnonzero(w.slot_accounts == a)
+    inp = StorageProofInput(
+        account_proof=account_proof, storage_proofs=[w.storage_entries[r][1] for r in rows],
+        root_hash=root, account_key=addr_key,
+        storage_keys=[bytes(w.slots[r]) for r in rows], address_keccak=addr_key)
+    nk = default_hasher()
+    st = EthTrie(hasher=nk)  # account a's storage trie, as storage_world builds it
+    for i in range(STORAGE_WORLD[2]):
+        st.insert(nk(a.to_bytes(16, "big") + i.to_bytes(16, "big")),
+                  rlp.encode_int((a << 20) + i + 1))
+    check(st.root_hash() == w.storage_entries[rows[0]][0], "storage trie rebuilt wrongly")
+    absent = a.to_bytes(16, "big") + (1 << 20).to_bytes(16, "big")
+    missing = StorageProofInput(
+        account_proof=account_proof, storage_proofs=[st.get_proof(nk(absent))],
+        root_hash=root, account_key=addr_key, storage_keys=[absent], address_keccak=addr_key)
+    return inp, [w.slot_values[r] for r in rows], missing
+
+
+def phase_roots_circuits(tx_block, card, dev):
+    """Phase 16: trie roots on the card against the blocks' roots and the
+    plain reduction; the circuit entry points against the oracle's bytes."""
+    fx = synthetic_block(*ROOT_BLOCK)
+    rplan = plan_index_trie([encode_receipt(r) for r in fx["receipts"]])
+    txs = tx_block["transactions"]
+    tplan = plan_index_trie([encode_transaction(tx) for tx in txs])
+    inputs = [x.to_borsh() for x in get_all_transaction_proof_inputs(tx_block)]
+    sw = storage_world(4, 8, STORAGE_WORLD[2])
+    inp, values, missing = storage_circuit_input(sw, 2)
+
+    # the main path of this phase, counted from zero
+    zero_counts()
+    t0 = time.time()
+    r_root, r_dig = compute_root(rplan, device=dev)
+    t_root, t_dig = compute_root(tplan, device=dev)
+    committed = run_merkle_circuit_batch(inputs, device=dev)
+    single = run_merkle_circuit(inputs[5], device=dev)
+    stored = run_storage_circuit(inp.to_borsh(), device=dev)
+    try:
+        run_storage_circuit(missing.to_borsh(), device=dev)
+        absent = "returned"
+    except MissingKeyError:
+        absent = "MissingKeyError"
+    torch.cuda.synchronize()
+    host_s = time.time() - t0
+    launches = read_counts()
+    for name in ("keccak256", "hinted", "bounded"):
+        check(launches[name] > 0, f"roots and circuits launched the {name} kernel no time")
+
+    check("0x" + bytes(r_root).hex() == fx["block"]["receiptsRoot"],
+          "compute_root of the receipt trie differs from the block's receiptsRoot")
+    check("0x" + bytes(t_root).hex() == tx_block["transactionsRoot"],
+          "compute_root of the transaction trie differs from the block's transactionsRoot")
+    for plan, dig in ((rplan, r_dig), (tplan, t_dig)):
+        check(np.array_equal(dig, compute_root(plan, device="cpu")[1]),
+              "compute_root on the card differs from the plain reduction")
+    encoded = [encode_transaction(tx) for tx in txs]
+    check(committed == encoded and single == encoded[5],
+          "run_merkle_circuit_batch did not commit the encoded transactions")
+    check(stored == values, "run_storage_circuit did not commit the slot values")
+    check(absent == "MissingKeyError", f"an absent slot: run_storage_circuit {absent}")
+    log(f"[16 roots] compute_root on the card: the receipt trie of synthetic_block"
+        f"{ROOT_BLOCK} ({rplan.num_levels} levels, {rplan.total_nodes} nodes) equals its "
+        f"receiptsRoot, the transaction trie of the {len(txs)}-tx block ({tplan.num_levels} "
+        f"levels, {tplan.total_nodes} nodes) its transactionsRoot, every digest equal to the "
+        f"plain reduction's")
+    log(f"[16 circuits] run_merkle_circuit_batch committed the {len(txs)} encoded txs (up "
+        f"to {max(map(len, encoded))} B), run_merkle_circuit tx 5; run_storage_circuit "
+        f"committed the {len(values)} slot values of storage_world account 2, an absent "
+        f"slot raised MissingKeyError ({host_s:.2f} s host time for the phase's calls); "
+        f"launches {launches}")
+    return {"launches": launches}
+
+
 def zero_counts():
-    for counts in (keccak_cuda.LAUNCHES, mpt_cuda.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    for k in keccak_cuda.LAUNCHES:
+        keccak_cuda.LAUNCHES[k] = 0
+    mpt_cuda.reset_counts()
 
 
 def read_counts():
-    """Every kernel wrapper's launch count since zero_counts()."""
-    return {**keccak_cuda.LAUNCHES, **mpt_cuda.LAUNCHES}
+    """Every kernel wrapper's launch count since zero_counts(), and the
+    guarded `exact` launches that walked (the device tally, one sync)."""
+    return {**keccak_cuda.LAUNCHES, **mpt_cuda.LAUNCHES,
+            "exact_walked": mpt_cuda.exact_walked(DEVICE)}
 
 
 def seg_offsets(segments):
@@ -600,10 +926,9 @@ def phase_bounded(sw, adv_args, inline_entries, dev):
     args = lane_args(b, mpt.hash_nodes(b[0], b[1]))
     check(bool((compare(args, "over-bound nodes", 64) == 1).all()),
           "over-bound nodes did not latch the bounded flag")
-    exact_before = mpt_cuda.LAUNCHES["exact"]
+    walked = mpt_cuda.exact_walked(dev)
     got = mpt_cuda.walk_batch_cuda(*args, 64, with_reasons=True)
-    check(mpt_cuda.LAUNCHES["exact"] == exact_before + 1,
-          "over-bound nodes did not re-run in exact")
+    check(mpt_cuda.exact_walked(dev) == walked + 1, "over-bound nodes did not re-run in exact")
     out, values = mpt.walk_kernel_plain("exact", *args, 64, packed.nodes.shape[1] + 6)
     want = (out[:, 0], values, torch.where(out[:, 0] == mpt.FOUND, out[:, 3], 0), out[:, 5])
     check(max_err(got, want) == 0, "the exact re-run differs from the plain exact walk")
@@ -969,11 +1294,10 @@ def phase_hint_modes(head, adv, txw, dev):
           "hinted4 did not serve the long-form slot-2 node where hinted latches")
     check(bool((flags["ordered"][8:16] == 1).all()) and int(hinted_out[8:16, 4].sum()) == 0,
           "ordered did not latch on the unordered pack")
-    exact_before = mpt_cuda.LAUNCHES["exact"]
+    walked = mpt_cuda.exact_walked(dev)
     got = mpt_cuda.walk_batch_cuda(*cargs, 128, d + 6, hints=chints, with_reasons=True,
                                    hint_mode="ordered")
-    check(mpt_cuda.LAUNCHES["exact"] == exact_before + 1,
-          "the unordered pack did not re-run in exact")
+    check(mpt_cuda.exact_walked(dev) == walked + 1, "the unordered pack did not re-run in exact")
     out, values = mpt.walk_kernel_plain("exact", *cargs, 128, d + 6)
     want = (out[:, 0], values, torch.where(out[:, 0] == mpt.FOUND, out[:, 3], 0), out[:, 5])
     check(max_err(got, want) == 0, "the exact re-run differs from the plain exact walk")
@@ -997,7 +1321,7 @@ def phase_hint_modes(head, adv, txw, dev):
         check(mpt_cuda.LAUNCHES[mode] == before + len(head["segs"]) + 1,
               f"the pooled verify did not launch K2 {mode}")
     launches = read_counts()
-    check(launches["exact"] == 0, "an honest batch re-ran in exact")
+    check(launches["exact_walked"] == 0, "an honest batch re-ran in exact")
     (hs, hv, hl), (ts, tv, tl) = (tuple(x.cpu().numpy() for x in r) for r in res["hinted"])
     check(bool((hs == mpt.FOUND).all()) and all(
         bytes(hv[i, :hl[i]]) == head["leaves"][e[2]] for i, e in enumerate(head["entries"])),
@@ -1085,13 +1409,13 @@ def phase_blocks(txw, repo, dev):
     rrc, transfers = verify_block_receipts(fx["block"], fx["receipts"], device=dev)
     tpacked, tmvl = block_pack(tampered)
     rtam = verify_merkle_batch(tpacked, max_value_len=tmvl, device=dev)
-    exact_before = mpt_cuda.LAUNCHES["exact"]
+    walked = mpt_cuda.exact_walked(dev)
     fpacked, fmvl = block_pack(fallback)
     rfb = verify_merkle_batch(fpacked, max_value_len=fmvl, device=dev)
     torch.cuda.synchronize()
     host_s = time.time() - t0
     launches = read_counts()
-    for name in ("keccak256", "hinted", "exact"):
+    for name in ("keccak256", "hinted", "guard", "exact", "exact_walked"):
         check(launches[name] > 0, f"the block path launched the {name} kernel no time")
 
     txs = block["transactions"]
@@ -1115,7 +1439,7 @@ def phase_blocks(txw, repo, dev):
     check(rtam.status[bad_row] == mpt.INVALID and bool((rtam.status[others] == mpt.FOUND).all())
           and bool((rtam.values[others] == rrc.values[others]).all()),
           "a tampered receipt node did not turn exactly its receipt INVALID")
-    check(mpt_cuda.LAUNCHES["exact"] == exact_before + 1 and rfb.status[-1] == mpt.INVALID
+    check(launches["exact_walked"] == walked + 1 and rfb.status[-1] == mpt.INVALID
           and bool((rfb.status[:n_rc] == mpt.FOUND).all())
           and bool((rfb.values[:n_rc] == rrc.values).all()),
           "the receipt batch with a latching node did not re-run in exact with the "

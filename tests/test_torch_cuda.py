@@ -1,5 +1,7 @@
 """Kernels K1, K2 and K3 against their plain versions, on the card; K1
-and K2 also against the one-thread kernels that came before them.
+and K2 also against the one-thread kernels that came before them; the
+`exact` re-run decided on the card against the route that read its flag on
+the host; the device hint pass and the sweeps on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX and nothing of the JAX package, so it runs on a machine with PyTorch alone:
@@ -13,12 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from zk_state_proofs_tpu_torch.models import (replicated_batches, sweep, sweep_entries,
+                                              sweep_resident, sweep_resident_epochs)
 from zk_state_proofs_tpu_torch.oracle import EthTrie, keccak256, rlp
 from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
 from zk_state_proofs_tpu_torch.ops import keccak_cuda, mpt, mpt_cuda
+from zk_state_proofs_tpu_torch.ops import rlp as rlp_ops
 from zk_state_proofs_tpu_torch.witness import host_item_offsets, pack_proofs
-from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS,
-                                                      packed_to_tensors)
+from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, packed_to_tensors,
+                                                      sweep_world)
 
 pytestmark = pytest.mark.cuda
 
@@ -108,6 +113,83 @@ def test_walk_kernel_matches_plain(dev, mode):
         assert torch.equal(g, w) and torch.equal(o, w)
     if mode == "hinted":
         assert int(got[0][:, 4].sum()) > 0  # the inline-node proofs latch
+    if mode == "exact":
+        _check_device_hint_pass_and_sweeps(dev, packed)
+        return
+    # the `exact` re-run decided on the card (guard kernel, guarded launch)
+    # equals the route that read the flag on the host, bit for bit, on an
+    # honest batch, the adversarial batch and a batch that latches; the
+    # device tally counts the guarded launches that walked
+    key = keccak256(b"card-over-bound")
+    pair = rlp.encode([b"\x11" * 100, b"\x22"])  # item 1 past bounded's window
+    latching = pack_proofs(_entries()[:4] + [(keccak256(pair), [pair], key)],
+                           max_nodes=8, node_len=576)
+    for label, pk in (("honest", pack_proofs(_entries()[:12], max_nodes=8, node_len=576)),
+                      ("adversarial", packed), ("latching", latching)):
+        a, h = _walk_inputs(dev, pk)
+        if mode == "hinted" and label == "latching":
+            h = (h.to(torch.int32) + 7).remainder(255).to(torch.uint8)  # corrupt hints
+        h = h if mode == "hinted" else None
+        first = mpt_cuda.walk_lanes(mode, *a, hints=h)[0][:, 4]
+        latched = bool((first != 0).any())
+        assert latched if label == "latching" else not latched or label == "adversarial"
+        walked = mpt_cuda.exact_walked(dev)
+        guards = mpt_cuda.LAUNCHES["guard"]
+        got = mpt_cuda.walk_batch_cuda(*a, hints=h, with_reasons=True)
+        assert mpt_cuda.LAUNCHES["guard"] == guards + 1
+        assert mpt_cuda.exact_walked(dev) == walked + int(latched), label
+        for g, w in zip(got, _host_route(mode, a, h)):
+            assert torch.equal(g, w), (mode, label)
+
+
+def _walk_inputs(dev, packed):
+    """(walk_lanes' positional inputs, hints) of a packed batch on the card."""
+    t = packed_to_tensors(packed, dev, pool=False)
+    b = [t[k] for k in BATCH_FIELDS]
+    bb, d, n = packed.nodes.shape
+    hints = torch.from_numpy(host_item_offsets(packed.nodes.reshape(bb * d, n))
+                             .reshape(bb, d, 36)).to(dev)
+    return (b[0], b[1], b[2], mpt.hash_nodes(b[0], b[1]), b[3], b[4], b[5], 128,
+            d + 6), hints
+
+
+def _host_route(mode, args, hints):
+    """walk_batch_cuda as it was before the re-run moved to the card: the
+    flag read on the host, then an unguarded `exact` launch."""
+    out, values = mpt_cuda.walk_lanes(mode, *args, hints=hints)
+    if bool((out[:, 4] != 0).any()):
+        out, values = mpt_cuda.walk_lanes("exact", *args)
+    status = out[:, 0]
+    return status, values, torch.where(status == mpt.FOUND, out[:, 3], 0), out[:, 5]
+
+
+def _check_device_hint_pass_and_sweeps(dev, packed):
+    """The device hint pass on the card equals it on the CPU; a small sweep
+    in every form counts on the card what it counts on the CPU, with no
+    sync inside its batch loops."""
+    rng = np.random.default_rng(2)
+    rows = np.concatenate([packed.pool()[0], rng.integers(0, 256, (32, 576), dtype=np.uint8)])
+    cpu = rlp_ops.item_offsets(torch.from_numpy(rows))
+    assert torch.equal(rlp_ops.item_offsets(torch.from_numpy(rows).to(dev)).cpu(), cpu)
+    w = sweep_world(48)
+    entries = w.entries(range(48)) + _entries()[12:]
+    gp = pack_proofs(entries, max_nodes=8, node_len=576)
+    sels = [rng.permutation(gp.batch)[:16] for _ in range(3)]
+    for device in ("cpu", dev):
+        sync = device != "cpu"
+        got = [sweep_resident(gp, iter(sels), fused=f, materialize=m, device=device,
+                              forbid_sync=sync) for f, m in ((True, None), (False, False))]
+        got.append(sweep_resident_epochs(gp, 2, 16, salt=5, device=device, forbid_sync=sync))
+        for dedup in (True, False):
+            got.append(sweep_entries(([entries[i] for i in s] for s in sels), 8, 576,
+                                     dedup=dedup, pool_rows=256, device=device,
+                                     forbid_sync=sync))
+            got.append(sweep(replicated_batches(gp, 2), dedup=dedup, device=device))
+        counts = [(r.found, r.excluded, r.invalid, r.total, r.batches) for r in got]
+        if device == "cpu":
+            want = counts
+        assert counts == want
+    assert min(want[0][:3]) > 0
 
 
 # The walk kernel's three ways of holding node rows (csrc/mpt_walk.cu):

@@ -1,6 +1,6 @@
 """The port's own host modules (`oracle`, `witness.pack`, the block
-witness modules, `native`) against the JAX package's, whose copies they
-are: identical packed arrays, pools, hints and segment schedules, identical
+witness modules, the trie planner, `native`) against the JAX package's,
+whose copies they are: identical packed arrays, pools, hints and segment schedules, identical
 digests, encodings, tries and proofs."""
 
 import numpy as np
@@ -140,6 +140,20 @@ def test_block_host_copies_match_jax():
     raw = types.StorageProofInput(**storage).to_borsh()
     assert raw == jtypes.StorageProofInput(**storage).to_borsh()
     assert types.StorageProofInput.from_borsh(raw) == types.StorageProofInput(**storage)
+    # the trie planner's copy gives the original's plans
+    from zk_state_proofs_tpu.witness import trie_plan as jtrie_plan
+    from zk_state_proofs_tpu_torch.witness import trie_plan
+
+    values = [encoding.encode_receipt(r) for r in receipts]
+    dogs = [(b"do", b"verb"), (b"dog", b"puppy"), (b"doge", b"coin"), (b"horse", b"stallion")]
+    for ours, theirs in ((trie_plan.plan_index_trie(values), jtrie_plan.plan_index_trie(values)),
+                         (trie_plan.plan_trie(dogs), jtrie_plan.plan_trie(dogs)),
+                         (trie_plan.plan_trie([]), jtrie_plan.plan_trie([]))):
+        assert (ours.root_id, ours.total_nodes, ours.root_is_empty, ours.num_levels) == (
+            theirs.root_id, theirs.total_nodes, theirs.root_is_empty, theirs.num_levels)
+        for a, b in zip(ours.levels, theirs.levels):
+            for f in ("templates", "lengths", "node_ids", "hole_src", "hole_off"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
     bad = dict(block["transactions"][0])
     bad.pop("nonce")
     with pytest.raises(builders.WitnessError):

@@ -175,8 +175,9 @@ def test_packed_to_tensors_roundtrip(headline_256):
 
 
 def test_import_loads_neither_jax_nor_cuda():
-    """Importing the port, and running the storage and block paths on the
-    CPU, loads no JAX, no module of the JAX package and no CUDA."""
+    """Importing the port, and running the storage and block paths, a
+    sweep and a circuit on the CPU, loads no JAX, no module of the JAX
+    package and no CUDA."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -199,6 +200,21 @@ def test_import_loads_neither_jax_nor_cuda():
         "r, transfers = verify_block_receipts(fx['block'], fx['receipts'], device='cpu')\n"
         "assert r.all_found and verify_block_transactions(tx_geometry_block(3),\n"
         "                                                 device='cpu').all_found\n"
+        "import numpy as np\n"
+        "from zk_state_proofs_tpu_torch.models import (replicated_batches, run_merkle_circuit,\n"
+        "                                              sweep, sweep_resident_epochs)\n"
+        "from zk_state_proofs_tpu_torch.witness import (encode_transaction,\n"
+        "                                               get_transaction_proof_input)\n"
+        "from zk_state_proofs_tpu_torch.witness_bridge import sweep_world\n"
+        "sw = sweep_world(24)\n"
+        "res = sweep_resident_epochs(sw.pack(), epochs=1, batch=8, device='cpu')\n"
+        "assert res.found == res.total == 24 and res.batches == 3\n"
+        "rows = next(sw.index_batches(1, 8, np.random.default_rng(0)))\n"
+        "batch = zk_state_proofs_tpu_torch.witness.pack_proofs(sw.entries(rows))\n"
+        "assert sweep(replicated_batches(batch, 2), device='cpu').found == 16\n"
+        "inp = get_transaction_proof_input(fx['block'], 1)\n"
+        "assert run_merkle_circuit(inp.to_borsh(), device='cpu') == \\\n"
+        "    encode_transaction(fx['block']['transactions'][1])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'zk_state_proofs_tpu' or m.startswith('zk_state_proofs_tpu.'))\n"
         "assert not bad, bad\n"
@@ -231,3 +247,32 @@ def test_cuda_device_without_card_raises():
         verify_storage_grouped(ap, sp, w.slots, w.slot_accounts)
     with pytest.raises(RuntimeError):
         verify_storage_batch(ap, sp, w.slots)
+    # the sweep slice's entry points default to the card too
+    from zk_state_proofs_tpu_torch.models import (replicated_batches, run_merkle_circuit_batch,
+                                                  run_storage_circuit, sweep, sweep_entries,
+                                                  sweep_resident, sweep_resident_epochs)
+    from zk_state_proofs_tpu_torch.ops.trie_build import compute_root
+    from zk_state_proofs_tpu_torch.witness.trie_plan import plan_index_trie
+    from zk_state_proofs_tpu_torch.witness.types import MerkleProofInput, StorageProofInput
+
+    pn, pl, pi = packed.pool()
+    scalars = (packed.num_nodes, packed.roots, packed.key_nibbles, packed.key_lens)
+    calls = [lambda: sweep(replicated_batches(packed, 1)),
+             lambda: sweep_resident(packed, [np.arange(2)]),
+             lambda: sweep_resident_epochs(packed, 1, 2),
+             lambda: sweep_entries([[]], 8, 576),
+             lambda: compute_root(plan_index_trie([b"\x01" * 40])),
+             lambda: run_merkle_circuit_batch([MerkleProofInput([b"\x80"], b"\x00" * 32,
+                                                                b"\x01")]),
+             lambda: run_storage_circuit(StorageProofInput(
+                 [b"\x80"], [[b"\x80"]], b"\x00" * 32, b"\x00" * 32, [b"\x01"],
+                 b"\x00" * 32)),
+             lambda: tmpt.verify_proofs_indexed(pn, pl, np.zeros((pn.shape[0], 32), np.uint8),
+                                                pi, *scalars),
+             lambda: tmpt.verify_proofs_prehashed(*packed.astuple()[:3],
+                                                  np.zeros(packed.nodes.shape[:2] + (32,),
+                                                           np.uint8), *scalars[1:]),
+             lambda: tmpt.verify_proofs_pool_stream(pn, pl, pi, *scalars)]
+    for call in calls:
+        with pytest.raises(RuntimeError):
+            call()

@@ -131,6 +131,16 @@
 //  - the value is copied out at the end, byte-aligned: value[j] =
 //    node[vnode][clip(vstart) + j] for j < vlen (0 past the buffer).
 //
+// The `exact` re-run is decided on the card, as the TPU path decides it
+// with a jax.lax.cond (mpt_pallas.py:981): after a hinted or bounded walk,
+// walk_guard_kernel (one block) ORs the batch's overflow words into a
+// device int, and the `exact` launch that follows carries a pointer to it
+// (WalkArgs.guard): every block returns at once where it is 0, and
+// otherwise overwrites the batch's outputs in place. The host reads no
+// flag, so a stream of batches queues with no sync between them. A set
+// guard also adds one to a device tally, the count of guarded launches
+// that walked.
+//
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -167,6 +177,8 @@ struct WalkArgs {
   uint8_t* values;  // [B, max_value_len]
   int batch, d, n, kn, max_steps, max_value_len;
   int mode;  // a Mode
+  // a guarded launch walks only where *guard != 0 (nullptr: always)
+  const int32_t* guard;
 };
 
 namespace {
@@ -482,7 +494,7 @@ __device__ __forceinline__ bool digest_find(const uint8_t* dig, long long s1,
 
 __global__ void mpt_walk_thread_kernel(const WalkArgs a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.batch) return;
+  if (b >= a.batch || (a.guard != nullptr && *a.guard == 0)) return;
   const int n = a.n;
   const int n4 = (n + 3) / 4 * 4;
   const uint8_t* nodes = a.nodes + b * a.nodes_s0;
@@ -984,6 +996,7 @@ template <int G>
 __global__ void __launch_bounds__(kWarps * 32)
     mpt_walk_warp_kernel(const WalkArgs a, const WarpLayout L) {
   extern __shared__ __align__(16) uint8_t smem[];
+  if (a.guard != nullptr && *a.guard == 0) return;  // the whole block
   const int gi = threadIdx.x / G;  // the group's proof slot in the block
   const int b = blockIdx.x * (kWarps * 32 / G) + gi;
   if (b >= a.batch) return;  // the whole group
@@ -1160,6 +1173,23 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// guard[0] = 1 if any proof's overflow word (out[b * 6 + 4]) is set, else
+// 0; a set guard adds one to *tally. One block: a batch's flags are a few
+// KB.
+__global__ void __launch_bounds__(1024)
+    walk_guard_kernel(const int32_t* out, int batch, int32_t* guard,
+                      unsigned long long* tally) {
+  int any = 0;
+  for (int b = threadIdx.x; b < batch; b += blockDim.x) {
+    any |= out[(long long)b * 6 + 4] != 0;
+  }
+  any = __syncthreads_or(any);
+  if (threadIdx.x == 0) {
+    *guard = any;
+    if (any) atomicAdd(tally, 1ULL);
+  }
+}
+
 int round16(long long x) { return (int)((x + 15) / 16 * 16); }
 
 // lanes a proof: a warp for the hinted modes' parallel decode, a smaller
@@ -1248,6 +1278,13 @@ extern "C" void zkp_walk_layout(const WalkArgs* args, int* out) {
   out[1] = mpt_walk_lanes_for(args->mode);
   out[2] = L.bytes;
   out[3] = kWarps * 32 / out[1] * L.bytes;
+}
+
+// the guard of a guarded `exact` launch (walk_guard_kernel)
+extern "C" int zkp_walk_guard(const int32_t* out, int batch, int32_t* guard,
+                              unsigned long long* tally, void* stream) {
+  walk_guard_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(out, batch, guard, tally);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int zkp_walk_args_size() { return (int)sizeof(WalkArgs); }

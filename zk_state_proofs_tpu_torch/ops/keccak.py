@@ -148,6 +148,13 @@ def keccak256(data, lengths=None):
     return lanes_to_bytes(out_hi, out_lo)
 
 
+def keccak256_fixed(data):
+    """Keccak-256 of fixed-length messages: every row of data u8 [..., L]
+    hashed whole, no length masking (port of
+    `zk_state_proofs_tpu.ops.keccak.keccak256_fixed`)."""
+    return keccak256(data)
+
+
 def _raw_lane_half(words, nlen, q80, widx, q):
     """Lane halves from row words at word indices `widx` [17] (bytes
     q..q+3, q [17]): the raw bytes masked to the message length, the 0x01

@@ -7,16 +7,21 @@ Verification is phase-split as in the JAX package:
      (a row gather — the JAX package's one-hot bf16 matmul was a TPU
      workaround; bytes never pass through a float matmul here, where TF32
      would corrupt them);
-  3. walk every proof (kernel K2, `mpt_cuda`): a hinted mode with pack-time
-     hints (`hinted` unless `hint_mode` names another), `bounded` mode
-     without them, and an `exact` re-run of the batch when any overflow
-     flag latches;
+  3. walk every proof (kernel K2, `mpt_cuda`): a hinted mode with hints
+     (pack-time hints, or the device hint pass `rlp.item_offsets`;
+     `hinted` unless `hint_mode` names another), `bounded` mode without
+     them, and an `exact` re-run of the batch when any overflow flag
+     latches, decided on the card;
   4. extract the values (inside K2 on the card).
 
 This module holds the plain PyTorch walk — `walk_kernel_plain`, the plain
-version of K2, which a CPU tensor runs — and the entry points. Each proof
-gets a status (FOUND / EXCLUDED / INVALID), its value and, from the
-diagnostic entry points, the first failure class (REASON_NAMES).
+version of K2, which a CPU tensor runs — and the entry points: the pooled
+verify, and for witness sets resident on the card `verify_proofs_indexed`
+(row gathers from a hashed pool), `verify_proofs_prehashed` (the walk
+against digests already hashed) and `verify_proofs_pool_stream` (a fresh
+pool each call). Each proof gets a status (FOUND / EXCLUDED / INVALID),
+its value and, from the diagnostic entry points, the first failure class
+(REASON_NAMES).
 """
 
 from __future__ import annotations
@@ -24,10 +29,12 @@ from __future__ import annotations
 import torch
 
 from ..oracle.trie import EMPTY_ROOT
+from ..witness_bridge import resolve_device
 from . import mpt_cuda
 from .keccak_cuda import keccak256_cuda
 from .rlp import (bytes_to_nibbles_device, decode_node_bounded,
-                  decode_node_hinted, decode_node_select, fetch_bytes)
+                  decode_node_hinted, decode_node_select, fetch_bytes,
+                  item_offsets)
 
 # status codes (per proof)
 RUNNING = 0
@@ -299,6 +306,17 @@ def walk_batch(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
     return status, values, vlen, out[:, 5]
 
 
+def walk_one(nodes, node_lens, num_nodes, digests, root, key_nibbles, key_len,
+             max_value_len: int, max_steps: int | None = None):
+    """One proof through walk_batch: nodes u8 [D, N], node_lens i32 [D],
+    num_nodes and key_len 0-d, digests u8 [D, 32], root u8 [32],
+    key_nibbles u8 [K] -> (status, value u8 [max_value_len], value_len)."""
+    status, value, vlen, _ = walk_batch(
+        nodes[None], node_lens[None], num_nodes[None], digests[None], root[None],
+        key_nibbles[None], key_len[None], max_value_len, max_steps)
+    return status[0], value[0], vlen[0]
+
+
 def hash_nodes(nodes, node_lens):
     """Digest every padded proof node: u8 [B, D, N], i32 [B, D] -> u8
     [B, D, 32] (kernel K1 on the card, plain keccak on the CPU)."""
@@ -333,16 +351,21 @@ def scatter_pool_payload(payload, pool_idx):
 
 
 def hash_nodes_pooled(pool_nodes, pool_lens, pool_idx, pool_hints=None,
-                      pool_segments=None):
+                      pool_segments=None, with_hints: bool = False):
     """Digest the unique-node pool once and scatter to the per-proof table:
     -> digests u8 [B, D, 32], or (digests, hints u8 [B, D, 36]) when
-    pool_hints (u8 [U, 36], PackedProofs.pool_hints()) is given — the 36
-    hint bytes ride the same row gather."""
+    pool_hints (u8 [U, 36], PackedProofs.pool_hints()) is given or
+    with_hints is set — the 36 hint bytes ride the same row gather. With
+    with_hints and no pool_hints the hints come from the device pass
+    (rlp.item_offsets over the pool rows)."""
     payload = _hash_pool_rows(pool_nodes, pool_lens, pool_segments)
-    if pool_hints is not None:
+    with_hints = with_hints or pool_hints is not None
+    if with_hints:
+        if pool_hints is None:
+            pool_hints = item_offsets(pool_nodes)
         payload = torch.cat([payload, pool_hints], dim=1)  # [U, 68]
     out = scatter_pool_payload(payload, pool_idx)
-    if pool_hints is not None:
+    if with_hints:
         return out[..., :32], out[..., 32:]
     return out
 
@@ -364,13 +387,13 @@ def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
     versions. Returns (status i32 [B], values u8 [B, max_value_len],
     value_lens i32 [B]).
 
-    pool_hints (u8 [U, 36], PackedProofs.pool_hints()) with hinted=True
-    walks in K2's hinted mode `hint_mode` (None is 'hinted'; HINT_MODES;
-    the JAX package's argument of that name, which replaces its
-    ZKP_WALK_HINT_MODE and ZKP_WALK_HINT4 environment switches); without
-    them (the device hint pass `ops.rlp.item_offsets` is not ported) or with
-    hinted=False the walk is `bounded`, as in the JAX package. Either is
-    re-run in `exact` when any proof latches the overflow flag. Results are
+    hinted=True walks in K2's hinted mode `hint_mode` (None is 'hinted';
+    HINT_MODES; the JAX package's argument of that name, which replaces
+    its ZKP_WALK_HINT_MODE and ZKP_WALK_HINT4 environment switches), with
+    pool_hints (u8 [U, 36], PackedProofs.pool_hints()) or, without them,
+    hints from the device pass `ops.rlp.item_offsets`, as the JAX package
+    walks on the TPU; hinted=False walks `bounded`. Either is re-run in
+    `exact` when any proof latches the overflow flag. Results are
     identical in every case. An unknown hint_mode raises ValueError.
 
     depth_segments: ((count, d), ...) covering the batch in order
@@ -383,16 +406,97 @@ def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
     (PackedProofs.pool_block_segments()) — one keccak launch per segment
     at its trimmed width."""
     hint_mode = check_hint_mode(hint_mode)
-    use_hints = pool_hints if hinted else None
-    table = hash_nodes_pooled(pool_nodes, pool_lens, pool_idx, use_hints,
-                              pool_segments)
-    digests, hints = table if use_hints is not None else (table, None)
+    table = hash_nodes_pooled(pool_nodes, pool_lens, pool_idx,
+                              pool_hints if hinted else None, pool_segments,
+                              with_hints=hinted)
+    digests, hints = table if hinted else (table, None)
     args = (nodes, node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
             max_value_len, max_steps)
     if depth_segments is None:
         return mpt_cuda.walk_batch_cuda(*args, hints=hints, hint_mode=hint_mode)
     return mpt_cuda.walk_batch_cuda_segmented(depth_segments, *args, hints=hints,
                                               hint_mode=hint_mode)
+
+
+def _on(device, *xs):
+    """xs (tensors or numpy arrays; None stays None) on `device`; a CUDA
+    device without a card raises."""
+    dev = resolve_device(device)
+    return [None if x is None else torch.as_tensor(x).to(dev) for x in xs]
+
+
+def verify_proofs_indexed(pool_nodes, pool_lens, pool_digests, pool_idx,
+                          num_nodes, roots, key_nibbles, key_lens,
+                          pool_hints=None, max_value_len: int = 128,
+                          max_steps: int | None = None, hinted: bool = True,
+                          device="cuda"):
+    """Verification against a witness pool resident on the card (port of
+    `zk_state_proofs_tpu.ops.mpt.verify_proofs_indexed`): the pool's
+    bytes, lengths and digests (`hash_pool`) stay on the device, and each
+    call gathers its proofs' node rows from it by index.
+
+    pool_nodes u8 [U, N], pool_lens i32 [U], pool_digests u8 [U, 32],
+    pool_idx i32 [B, D], num_nodes i32 [B], roots u8 [B, 32], key_nibbles
+    u8 [B, K], key_lens i32 [B]. hinted=True walks `hinted` with
+    pool_hints (u8 [U, 36]) or, without them, the device hint pass over
+    the pool; the hint rows ride the digest gather. hinted=False walks
+    `bounded`. Every input goes to `device` ("cuda" unless named: K1 and
+    K2; "cpu": their plain versions). Returns (status, values,
+    value_lens)."""
+    (pool_nodes, pool_lens, pool_digests, pool_idx, num_nodes, roots, key_nibbles,
+     key_lens, pool_hints) = _on(device, pool_nodes, pool_lens, pool_digests,
+                                 pool_idx, num_nodes, roots, key_nibbles, key_lens,
+                                 pool_hints)
+    b, d = pool_idx.shape
+    flat = pool_idx.reshape(b * d).to(torch.int64)
+    nodes = torch.index_select(pool_nodes, 0, flat).reshape(b, d, -1)
+    node_lens = torch.index_select(pool_lens, 0, flat).reshape(b, d)
+    hints = None
+    if hinted:
+        if pool_hints is None:
+            pool_hints = item_offsets(pool_nodes)
+        taken = torch.index_select(torch.cat([pool_digests, pool_hints], dim=1), 0,
+                                   flat).reshape(b, d, 68)
+        digests, hints = taken[..., :32], taken[..., 32:]
+    else:
+        digests = torch.index_select(pool_digests, 0, flat).reshape(b, d, 32)
+    return mpt_cuda.walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots,
+                                    key_nibbles, key_lens, max_value_len, max_steps,
+                                    hints=hints)
+
+
+def verify_proofs_prehashed(nodes, node_lens, num_nodes, digests, roots,
+                            key_nibbles, key_lens, hints=None,
+                            max_value_len: int = 128,
+                            max_steps: int | None = None, device="cuda"):
+    """The walk alone, against digests hashed before (port of
+    `zk_state_proofs_tpu.ops.mpt.verify_proofs_prehashed`): for resident
+    sweeps whose per-proof tables were expanded once from a hashed pool.
+    The digests must come from the same node bytes; the walk still checks
+    every hash link against `roots`. hints (u8 [B, D, 36]) walk `hinted`,
+    none `bounded`. Inputs go to `device`, as verify_proofs_indexed.
+    Returns (status, values, value_lens)."""
+    args = _on(device, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
+               key_lens, hints)
+    return mpt_cuda.walk_batch_cuda(*args[:7], max_value_len, max_steps,
+                                    hints=args[7])
+
+
+def verify_proofs_pool_stream(pool_nodes, pool_lens, pool_idx, num_nodes, roots,
+                              key_nibbles, key_lens, max_value_len: int = 128,
+                              max_steps: int | None = None, device="cuda"):
+    """Pooled verification from the pool alone (port of
+    `zk_state_proofs_tpu.ops.mpt.verify_proofs_pool_stream`): the per-proof
+    node tables are gathered on the device from the pool, so a fresh batch
+    ships its pool, indices and per-proof scalars only. Hashes the pool
+    (K1), then verify_proofs_indexed with the device hint pass. Returns
+    (status, values, value_lens)."""
+    pool_nodes, pool_lens = _on(device, pool_nodes, pool_lens)
+    digests = hash_pool(pool_nodes, pool_lens)
+    return verify_proofs_indexed(pool_nodes, pool_lens, digests, pool_idx,
+                                 num_nodes, roots, key_nibbles, key_lens,
+                                 max_value_len=max_value_len, max_steps=max_steps,
+                                 device=device)
 
 
 def verify_proofs(nodes, node_lens, num_nodes, roots, key_nibbles, key_lens,

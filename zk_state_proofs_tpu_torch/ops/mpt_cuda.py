@@ -16,7 +16,15 @@ calls it. `walk_batch_cuda` and
 `walk_batch_cuda_segmented` are the ports of `walk_batch_pallas` and
 `walk_batch_pallas_segmented`. When any proof latches the overflow flag in
 `hinted` or `bounded` mode, the whole batch is walked again in `exact`, as
-on the TPU.
+on the TPU, and the card decides it (`rerun_exact`): a guard kernel ORs
+the flags into a device int, and a guarded `exact` launch returns at once
+where it is 0. The host reads no flag.
+
+Counts: LAUNCHES[mode] counts the walk kernel's launches in each mode,
+guarded `exact` launches included; LAUNCHES["guard"] the guard kernel's
+(one per guarded `exact` launch). `exact_walked(device)` reads the device
+tally of guarded launches that walked (one sync; `reset_counts` zeroes
+every count).
 """
 
 from __future__ import annotations
@@ -30,8 +38,9 @@ from ._build import check_launch, load_library
 
 _MODE_CODE = {"exact": 0, "hinted": 1, "bounded": 2, "hinted4": 3,  # WalkArgs.mode
               "hinted1": 4, "ordered": 5, "pairskip": 6}
-LAUNCHES = dict.fromkeys(_MODE_CODE, 0)
+LAUNCHES = {**dict.fromkeys(_MODE_CODE, 0), "guard": 0}
 THREAD_LAUNCHES = dict.fromkeys(_MODE_CODE, 0)  # walk_lanes_thread's
+_TALLY: dict = {}  # device -> int64 [1]: guarded `exact` launches that walked
 
 
 class WalkArgs(ctypes.Structure):
@@ -54,6 +63,7 @@ class WalkArgs(ctypes.Structure):
         ("batch", ctypes.c_int), ("d", ctypes.c_int), ("n", ctypes.c_int),
         ("kn", ctypes.c_int), ("max_steps", ctypes.c_int),
         ("max_value_len", ctypes.c_int), ("mode", ctypes.c_int),
+        ("guard", ctypes.c_void_p),
     ]
 
 
@@ -87,9 +97,12 @@ def _word_aligned(nodes):
 
 
 def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
-               key_lens, max_value_len, max_steps, hints, aligned):
+               key_lens, max_value_len, max_steps, hints, aligned, into=None,
+               guard=None):
     """Check the inputs and allocate the outputs of one launch: (WalkArgs,
-    out, values), or (None, out, values) for an empty batch."""
+    out, values), or (None, out, values) for an empty batch. `into`: the
+    (out, values) of an earlier launch on the same batch, written in
+    place; `guard`: the device int of a guarded launch."""
     if nodes.device.type != "cuda":
         raise ValueError(f"walk_lanes: unsupported device {nodes.device}")
     if mode not in mpt.WALK_MODES:
@@ -116,8 +129,11 @@ def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
     if aligned and mode == "hinted1":
         nodes = _word_aligned(nodes)
         n = nodes.shape[2]
-    out = torch.empty((b, 6), dtype=torch.int32, device=dev)
-    values = torch.empty((b, max_value_len), dtype=torch.uint8, device=dev)
+    if into is None:
+        out = torch.empty((b, 6), dtype=torch.int32, device=dev)
+        values = torch.empty((b, max_value_len), dtype=torch.uint8, device=dev)
+    else:
+        out, values = into
     if b == 0:
         return None, out, values
     args = WalkArgs(
@@ -131,15 +147,17 @@ def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
         hints.data_ptr() if hinted else None,
         hints.stride(0) if hinted else 0, hints.stride(1) if hinted else 0,
         out.data_ptr(), values.data_ptr(),
-        b, d, n, kn, max_steps, max_value_len, _MODE_CODE[mode])
+        b, d, n, kn, max_steps, max_value_len, _MODE_CODE[mode],
+        None if guard is None else guard.data_ptr())
     args.keep = nodes  # a padded copy lives as long as the struct
     return args, out, values
 
 
-def _launch(entry, counts, mode, *tensors, aligned):
+def _launch(entry, counts, mode, *tensors, aligned, into=None, guard=None):
     """One launch of the C entry point `entry` on walk_lanes' inputs,
     counted in `counts`; (out, values) as walk_lanes returns them."""
-    args, out, values = _walk_args(mode, *tensors, aligned=aligned)
+    args, out, values = _walk_args(mode, *tensors, aligned=aligned, into=into,
+                                   guard=guard)
     if args is None:
         return out, values
     lib = load_library().lib
@@ -195,6 +213,75 @@ def walk_lanes_thread(mode: str, nodes, node_lens, num_nodes, digests, roots,
                    max_value_len, max_steps, hints, aligned=True)
 
 
+def exact_tally(device) -> torch.Tensor:
+    """The device's int64 [1] tally of guarded `exact` launches that
+    walked (created zero on first use)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _TALLY:
+        _TALLY[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _TALLY[device]
+
+
+def exact_walked(device) -> int:
+    """Guarded `exact` launches on `device` that walked, since the last
+    reset_counts() (reads the device tally: one sync)."""
+    return int(exact_tally(device).item())
+
+
+def reset_counts() -> None:
+    """Zero the launch counts and every device tally."""
+    for counts in (LAUNCHES, THREAD_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    for t in _TALLY.values():
+        t.zero_()
+
+
+def guard_plain(out):
+    """The plain version of the guard kernel: i32 [1], 1 where any proof
+    of out (i32 [B, 6]) latched its overflow flag (out[:, 4]), else 0."""
+    return (out[:, 4] != 0).any().to(torch.int32).reshape(1)
+
+
+def walk_guard(out):
+    """The guard of the `exact` re-run (the predicate of the TPU path's
+    jax.lax.cond): i32 [1], as guard_plain. A CUDA tensor launches the
+    guard kernel, which also adds one to the device tally (exact_tally)
+    when the guard is set; a CPU tensor takes guard_plain."""
+    if out.device.type == "cpu":
+        return guard_plain(out)
+    if out.device.type != "cuda" or out.dtype != torch.int32 or out.ndim != 2 \
+            or out.shape[1] != 6 or not out.is_contiguous():
+        raise ValueError(f"walk_guard: want contiguous i32 [B, 6] on the card, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    guard = torch.empty(1, dtype=torch.int32, device=out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    check_launch(load_library().lib.zkp_walk_guard(
+        out.data_ptr(), out.shape[0], guard.data_ptr(),
+        exact_tally(out.device).data_ptr(), stream), "walk guard kernel")
+    LAUNCHES["guard"] += 1
+    return guard
+
+
+def rerun_exact(out, values, args):
+    """Walk the batch again in `exact` where any proof latched the
+    overflow flag — the counterpart of the TPU path's jax.lax.cond. On the
+    card the decision stays there: walk_guard writes the guard on the
+    device, and the `exact` launch that follows returns at once where it
+    is 0, else overwrites out and values in place. A CPU batch tests
+    guard_plain on the host. args: walk_lanes' positional inputs. Returns
+    (out, values)."""
+    if out.shape[0] == 0:
+        return out, values
+    guard = walk_guard(out)
+    if out.device.type == "cpu":
+        return walk_lanes("exact", *args) if bool(guard) else (out, values)
+    return _launch("zkp_mpt_walk", LAUNCHES, "exact", *args, None, aligned=False,
+                   into=(out, values), guard=guard)
+
+
 def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
                     key_lens, max_value_len: int, max_steps: int | None = None,
                     with_reasons: bool = False, hints=None,
@@ -208,9 +295,9 @@ def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
     'hinted'; one of `ops.mpt.HINT_MODES`), no hints `bounded` mode. If any
     proof latches the overflow flag (wrong hints, an inline-child step in a
     hinted mode, an item past its bound, an out-of-order node in
-    'ordered'), the whole batch is walked again in `exact`, so results
-    equal `ops.mpt.walk_batch` on every input. Deciding that reads one flag
-    back to the host."""
+    'ordered'), the whole batch is walked again in `exact` (rerun_exact,
+    decided on the card), so results equal `ops.mpt.walk_batch` on every
+    input."""
     hint_mode = mpt.check_hint_mode(hint_mode)
     if max_steps is None:
         max_steps = nodes.shape[1] + 6
@@ -218,9 +305,8 @@ def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
     args = (nodes, node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
             max_value_len, max_steps)
     out, values = walk_lanes(mode, *args, hints=hints)
-    fast_ovf = out[:, 4]
-    if bool((fast_ovf != 0).any()):
-        out, values = walk_lanes("exact", *args)
+    fast_ovf = out[:, 4].clone() if with_overflow else None
+    out, values = rerun_exact(out, values, args)
     status = out[:, 0]
     result = (status, values, torch.where(status == mpt.FOUND, out[:, 3], 0))
     if with_reasons:

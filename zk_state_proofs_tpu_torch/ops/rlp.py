@@ -111,6 +111,33 @@ def decode_node_select(buf, start, buf_len, child_idx):
     return sel
 
 
+def item_offsets(buf):
+    """The device hint pass: each row's RLP item boundaries, the hints of
+    the walk's hinted modes (port of `zk_state_proofs_tpu.ops.rlp.
+    item_offsets`).
+
+    buf u8 [R, N] (zero-padded nodes, decoded at offset 0) -> u8 [R, 36]:
+    the 18 cursor positions of the serial decode chain (the payload start
+    of the node list, then the boundary after each of up to 17 items),
+    each a big-endian u16 clamped to 65535. The same header rules
+    (item_head_window) and position clamps (fetch_bytes) as the walk's
+    serial decode; 18 dependent indexed loads over all rows at once.
+    Hints are untrusted: the walk checks the chain and re-runs in `exact`
+    where it breaks."""
+    r = buf.shape[0]
+    po, plen, _, _ = item_head_window(
+        fetch_bytes(buf, torch.zeros(r, dtype=torch.int64, device=buf.device), 4))
+    end = po + plen
+    cursor = po
+    hs = [cursor]
+    for _ in range(MAX_ITEMS):
+        ipo, ipl, _, _ = item_head_window(fetch_bytes(buf, cursor, 4))
+        cursor = torch.where(cursor < end, cursor + ipo + ipl, cursor)
+        hs.append(cursor)
+    h = torch.stack(hs, dim=1).clamp(0, 0xFFFF)  # [R, 18]
+    return torch.stack([h >> 8, h & 0xFF], dim=-1).reshape(r, 36).to(torch.uint8)
+
+
 def _item_bound(i: int) -> int:
     """Item i of an honest branch or pair node starts within 10 + 35*i
     bytes of the node's first byte (header <= 4 B, branch items <= 33 B,

@@ -1,6 +1,7 @@
 """PackedProofs -> torch tensors, with the JAX arrays' dtypes and layouts,
 and the witness recipes the port is driven with (the headline accounts,
-the grouped-storage world, the transaction-trie geometry batch).
+the grouped-storage world, the transaction-trie geometry batch, config
+5's sweep world).
 
 The port's state is the packed witness. `packed_to_tensors` moves the numpy
 arrays of a `witness.PackedProofs` onto `device` without changing dtype or
@@ -36,13 +37,14 @@ def _t(a, dtype, device):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
 
-def packed_to_tensors(packed: PackedProofs, device, pool: bool = True) -> dict:
+def packed_to_tensors(packed: PackedProofs, device, pool: bool = True,
+                      hints: bool = True) -> dict:
     """Tensors of a packed batch on `device`:
       nodes u8 [B, D, N], node_lens i32 [B, D], num_nodes i32 [B],
       roots u8 [B, 32], key_nibbles u8 [B, K], key_lens i32 [B]
     and with pool=True also pool_nodes u8 [U, N], pool_lens i32 [U],
-    pool_idx i32 [B, D] (packed.pool()) and pool_hints u8 [U, 36]
-    (packed.pool_hints())."""
+    pool_idx i32 [B, D] (packed.pool()) and, unless hints=False,
+    pool_hints u8 [U, 36] (packed.pool_hints())."""
     dev = resolve_device(device)
     out = {
         "nodes": _t(packed.nodes, np.uint8, dev),
@@ -57,7 +59,8 @@ def packed_to_tensors(packed: PackedProofs, device, pool: bool = True) -> dict:
         out["pool_nodes"] = _t(pn, np.uint8, dev)
         out["pool_lens"] = _t(pl, np.int32, dev)
         out["pool_idx"] = _t(pi, np.int32, dev)
-        out["pool_hints"] = _t(packed.pool_hints(), np.uint8, dev)
+        if hints:
+            out["pool_hints"] = _t(packed.pool_hints(), np.uint8, dev)
     return out
 
 
@@ -216,3 +219,69 @@ def tx_geometry_batch(block: dict, total: int = 4096) -> TxGeometryBatch:
         packed=packed, values=[encoded[i % len(txs)] for i in range(total)],
         max_value_len=-(-max(len(e) for e in encoded) // 128) * 128,
         max_steps=packed.nodes.shape[1] + 2)
+
+
+@dataclass
+class SweepWorld:
+    """BASELINE config 5's witness set: every account of one state trie
+    with its proof (bench_configs.py `config5_sweep_with_root_reduction`)."""
+
+    trie: EthTrie  # the state trie (proofs of absent keys too)
+    root: bytes
+    keys: list     # keccak(b"sweep-acct-%d" % i)
+    proofs: list   # proof of keys[i]
+    leaves: list   # the leaf of keys[i]
+    max_nodes: int  # the longest proof
+    node_len: int = 576
+
+    @property
+    def n_accounts(self) -> int:
+        return len(self.keys)
+
+    def entries(self, rows) -> list:
+        """(root, proof, key) of each account row in `rows`."""
+        return [(self.root, self.proofs[i], self.keys[i]) for i in rows]
+
+    def depth_order(self) -> list:
+        """Account rows deepest proof first (bench_configs.py:597-599)."""
+        return sorted(range(self.n_accounts), key=lambda i: -len(self.proofs[i]))
+
+    def pack(self) -> PackedProofs:
+        """The global witness of the resident sweeps: every account in
+        depth order, at (max_nodes, node_len)."""
+        return pack_proofs(self.entries(self.depth_order()), max_nodes=self.max_nodes,
+                           node_len=self.node_len)
+
+    def index_batches(self, n: int, batch: int, rng: np.random.Generator):
+        """n batches of `batch` distinct rows of the global witness (i32),
+        walking a random permutation and drawing a fresh one when it runs
+        out (bench_configs.py `index_batches`)."""
+        order, pos = rng.permutation(self.n_accounts), 0
+        for _ in range(n):
+            if pos + batch > self.n_accounts:
+                order, pos = rng.permutation(self.n_accounts), 0
+            yield order[pos:pos + batch].astype(np.int32)
+            pos += batch
+
+    def entry_batches(self, n: int, batch: int, rng: np.random.Generator):
+        """index_batches as lists of raw entries (for sweep_entries); the
+        indices are account rows."""
+        for idx in self.index_batches(n, batch, rng):
+            yield self.entries(idx)
+
+
+def sweep_world(n_accounts: int = 65536, hasher=None) -> SweepWorld:
+    """Config 5's recipe (bench_configs.py:541-552): account i under key
+    keccak(b"sweep-acct-%d" % i) with leaf RLP [i + 1, 10**18 + i,
+    keccak(b"sr%d" % i), keccak(b"ch%d" % i)], hashed with `hasher` (the
+    native keccak by default)."""
+    nk = hasher or default_hasher()
+    trie = EthTrie(hasher=nk)
+    keys = [nk(b"sweep-acct-%d" % i) for i in range(n_accounts)]
+    leaves = [rlp.encode([rlp.int_to_min_bytes(i + 1), rlp.int_to_min_bytes(10**18 + i),
+                          nk(b"sr%d" % i), nk(b"ch%d" % i)]) for i in range(n_accounts)]
+    for k, leaf in zip(keys, leaves):
+        trie.insert(k, leaf)
+    proofs = [trie.get_proof(k) for k in keys]
+    return SweepWorld(trie=trie, root=trie.root_hash(), keys=keys, proofs=proofs, leaves=leaves,
+                      max_nodes=max(len(p) for p in proofs))
