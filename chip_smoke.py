@@ -180,7 +180,6 @@ SWEEP_ACCOUNTS = 65536
 SWEEP_BATCH = 4096
 SWEEP_BATCHES = 256
 SWEEP_SEED = 5            # the index batches' numpy Generator
-MIXED_BATCH = 1024        # batches over the 4096-proof mixed witness
 ROOT_BLOCK = (256, 5)     # synthetic_block(num_txs, seed): config 5's receipt-trie root
 # How device times are taken. torch.profiler lost kernel records in some
 # windows of this script's runs (fewer kernels than launched), so device
@@ -498,6 +497,9 @@ def main() -> None:
 
     # ---- 15-16. the sweeps, roots and circuits ----------------------------
     swp = phase_sweeps(card, dev)
+    k1_err = max(k1_err, swp["err"]["k1"])
+    for mode in ("hinted", "exact"):
+        k2_err[mode] = max(k2_err[mode], swp["err"]["k2"])
     rc = phase_roots_circuits(tx_block, card, dev)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "zk_state_proofs_tpu"))
@@ -640,18 +642,19 @@ def phase_sweeps(card, dev):
     mixed = mixed_sweep_witness(w)
     mp = pack_proofs(mixed, max_nodes=max(len(p) for _, p, _ in mixed), node_len=n)
     t = packed_to_tensors(mp, dev)
-    status = plain_pooled([t[k] for k in BATCH_FIELDS], [t[k] for k in POOL_FIELDS],
-                          t["pool_hints"], max_value_len=128, max_steps=steps)[0].cpu().numpy()
+    plain_mixed = plain_pooled([t[k] for k in BATCH_FIELDS], [t[k] for k in POOL_FIELDS],
+                               t["pool_hints"], max_value_len=128, max_steps=steps)
+    status = plain_mixed[0].cpu().numpy()
     count = lambda st: [int((st == c).sum()) for c in (mpt.FOUND, mpt.EXCLUDED, mpt.INVALID)]
     summed = lambda parts: [sum(c) for c in zip(*(count(status[p]) for p in parts))]
     check(count(status) == [3960 + 8, 64, 64], f"the mixed witness on the plain route: {count(status)}")
     mrng = np.random.default_rng(SWEEP_SEED + 1)
-    sels = [mrng.permutation(mp.batch)[:MIXED_BATCH] for _ in range(8)]
-    windows = [slice(s, s + MIXED_BATCH) for s in epoch_windows(mp.batch, MIXED_BATCH)]
+    sels = [mrng.permutation(mp.batch)[:SWEEP_BATCH] for _ in range(8)]
+    windows = [slice(s, s + SWEEP_BATCH) for s in epoch_windows(mp.batch, SWEEP_BATCH)]
     mixed_batch = pack_proofs([mixed[i] for i in sels[0]], max_nodes=mp.nodes.shape[1], node_len=n)
     mk = dict(max_steps=steps, device=dev)
     got = {
-        "epochs": (sweep_resident_epochs(mp, 2, MIXED_BATCH, salt=3, forbid_sync=True, **mk),
+        "epochs": (sweep_resident_epochs(mp, 2, SWEEP_BATCH, salt=3, forbid_sync=True, **mk),
                    summed(windows * 2)),
         "fused": (sweep_resident(mp, iter(sels), fused=True, forbid_sync=True, **mk),
                   summed(sels)),
@@ -699,9 +702,68 @@ def phase_sweeps(card, dev):
         f"({DEVICE_TIMING}): device busy {busy} of the sweep's time; wrapper launches a batch "
         f"{per_batch}; torch.profiler over 10 batches: {prof['launches']:.0f} device launches "
         f"a batch, busy {prof['busy_ms']:.4f} ms, top {top} on {card}")
+    err = sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev)
     del tables
 
-    return {"launches": launches, "guard": guard_check(card, dev)}
+    return {"launches": launches, "guard": guard_check(card, dev), "err": err}
+
+
+def sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev):
+    """The sweep path's kernels against their plain versions, proof by
+    proof, at the shapes the path gives them: K1 over the whole sweep pool;
+    through epoch_batch, the last epoch window of the world (K2 `hinted` on
+    the device pass's hints; no flag latches, the guarded `exact` launch
+    returns at once) and the whole mixed witness (its flags latch, so the
+    guarded `exact` launch walks), each proof's status, value, value length
+    and INVALID reason; the mixed witness through verify_proofs_indexed
+    (pack-time hints) and verify_proofs_pool_stream (a fresh pool, the
+    device pass's hints) against the plain route. Returns the largest
+    errors of K1 and K2 (0: identical)."""
+    pool_nodes, pool_lens, _ = gp.pool()
+    pn = torch.from_numpy(pool_nodes).to(dev)
+    pl = torch.from_numpy(pool_lens.astype(np.int32)).to(dev)
+    k1 = max_err([mpt.hash_pool(pn, pl)], [tkeccak.keccak256(pn, pl)])
+    check(k1 == 0, f"K1 differs from plain keccak on the sweep pool {tuple(pn.shape)} "
+                   f"(max abs err {k1})")
+    del pn, pl
+    mtables = epoch_tables(mp, dev)
+    last = int(epoch_windows(gp.batch, SWEEP_BATCH)[-1])
+    errs, shapes = {}, {}
+    for name, tb, s0, latches in (("world window", tables, last, False),
+                                  ("mixed witness", mtables, 0, True)):
+        walked = mpt_cuda.exact_walked(dev)
+        got = epoch_batch(tb, s0, SWEEP_BATCH, 0xA5, 128, steps, dev)
+        ran = mpt_cuda.exact_walked(dev) - walked
+        w = slice(s0, s0 + SWEEP_BATCH)
+        dh = tb["dh"][w]
+        batch = [tb[k][w] for k in ("nodes", "lens", "num", "roots", "knib", "klen")]
+        args = (*batch[:3], dh[..., :32], *batch[3:], 128, steps)
+        reasons = mpt_cuda.walk_batch_cuda(*args, hints=dh[..., 32:], with_reasons=True)[3]
+        want = plain_walk(batch, dh[..., :32], dh[..., 32:], 128, steps, with_reasons=True)
+        errs[name] = max_err([*got, reasons], want)
+        shapes[name] = tuple(batch[0].shape)
+        check(errs[name] == 0, f"epoch_batch on the {name} differs from the plain walk "
+                               f"(max abs err {errs[name]})")
+        check(ran == int(latches), f"epoch_batch on the {name}: the guarded exact launch "
+                                   f"walked {ran} times, {int(latches)} expected")
+    del mtables
+    pool = [t[k] for k in POOL_FIELDS]
+    scalars = [t[k] for k in ("num_nodes", "roots", "key_nibbles", "key_lens")]
+    dig = mpt.hash_pool(pool[0], pool[1])
+    errs["indexed"] = max_err(mpt.verify_proofs_indexed(
+        pool[0], pool[1], dig, pool[2], *scalars, pool_hints=t["pool_hints"],
+        max_steps=steps, device=dev), plain_mixed)
+    errs["pool stream"] = max_err(mpt.verify_proofs_pool_stream(
+        *pool, *scalars, max_steps=steps, device=dev), plain_mixed)
+    k2 = max(errs.values())
+    check(k2 == 0, f"the sweep's entry points differ from the plain route: {errs}")
+    log(f"[15 check] proof by proof, bit for bit: K1 == plain keccak on the sweep pool "
+        f"{pool_nodes.shape}; epoch_batch == the plain walk (status, value, value length, "
+        f"reason) on the world's last window {shapes['world window']} (exact not walked) and "
+        f"the mixed witness {shapes['mixed witness']} (the guarded exact walked); "
+        f"verify_proofs_indexed (pack-time hints) and verify_proofs_pool_stream on the "
+        f"mixed witness == the plain route; max abs err {errs}")
+    return {"k1": k1, "k2": k2}
 
 
 def guard_check(card, dev):
@@ -1649,10 +1711,11 @@ def adversarial_entries(entries):
     return adv, inline
 
 
-def plain_walk(batch, digests, hints, max_value_len, max_steps=None):
+def plain_walk(batch, digests, hints, max_value_len, max_steps=None, with_reasons=False):
     """walk_batch_cuda from the plain walk, on any device: hinted with
     hints, bounded without; the exact re-run when any flag latches.
-    batch: (nodes, node_lens, num_nodes, roots, key_nibbles, key_lens)."""
+    batch: (nodes, node_lens, num_nodes, roots, key_nibbles, key_lens).
+    with_reasons appends the INVALID reason."""
     steps = batch[0].shape[1] + 6 if max_steps is None else max_steps
     args = (*batch[:3], digests, *batch[3:], max_value_len, steps)
     out, values = mpt.walk_kernel_plain("bounded" if hints is None else "hinted",
@@ -1660,7 +1723,8 @@ def plain_walk(batch, digests, hints, max_value_len, max_steps=None):
     if bool((out[:, 4] != 0).any()):
         out, values = mpt.walk_kernel_plain("exact", *args)
     status = out[:, 0]
-    return status, values, torch.where(status == mpt.FOUND, out[:, 3], 0)
+    result = (status, values, torch.where(status == mpt.FOUND, out[:, 3], 0))
+    return result + (out[:, 5],) if with_reasons else result
 
 
 def plain_table(pool, pool_hints=None, psegs=None):

@@ -119,7 +119,8 @@ def test_walk_kernel_matches_plain(dev, mode):
     # the `exact` re-run decided on the card (guard kernel, guarded launch)
     # equals the route that read the flag on the host, bit for bit, on an
     # honest batch, the adversarial batch and a batch that latches; the
-    # device tally counts the guarded launches that walked
+    # device tally counts the guarded launches that walked (a guard kernel
+    # alone adds nothing to it)
     key = keccak256(b"card-over-bound")
     pair = rlp.encode([b"\x11" * 100, b"\x22"])  # item 1 past bounded's window
     latching = pack_proofs(_entries()[:4] + [(keccak256(pair), [pair], key)],
@@ -137,6 +138,10 @@ def test_walk_kernel_matches_plain(dev, mode):
         guards = mpt_cuda.LAUNCHES["guard"]
         got = mpt_cuda.walk_batch_cuda(*a, hints=h, with_reasons=True)
         assert mpt_cuda.LAUNCHES["guard"] == guards + 1
+        assert mpt_cuda.exact_walked(dev) == walked + int(latched), label
+        flagged = torch.zeros((4, 6), dtype=torch.int32, device=dev)
+        flagged[1, 4] = 1
+        assert int(mpt_cuda.walk_guard(flagged)) == 1
         assert mpt_cuda.exact_walked(dev) == walked + int(latched), label
         for g, w in zip(got, _host_route(mode, a, h)):
             assert torch.equal(g, w), (mode, label)

@@ -137,9 +137,9 @@
 // device int, and the `exact` launch that follows carries a pointer to it
 // (WalkArgs.guard): every block returns at once where it is 0, and
 // otherwise overwrites the batch's outputs in place. The host reads no
-// flag, so a stream of batches queues with no sync between them. A set
-// guard also adds one to a device tally, the count of guarded launches
-// that walked.
+// flag, so a stream of batches queues with no sync between them. A
+// guarded launch that walks adds one to a device tally (WalkArgs.tally,
+// from its first block), the count of guarded launches that walked.
 //
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -179,6 +179,8 @@ struct WalkArgs {
   int mode;  // a Mode
   // a guarded launch walks only where *guard != 0 (nullptr: always)
   const int32_t* guard;
+  // a launch that walks adds one here (nullptr: no tally)
+  unsigned long long* tally;
 };
 
 namespace {
@@ -493,8 +495,10 @@ __device__ __forceinline__ bool digest_find(const uint8_t* dig, long long s1,
 }
 
 __global__ void mpt_walk_thread_kernel(const WalkArgs a) {
+  if (a.guard != nullptr && *a.guard == 0) return;  // the whole block
+  if (a.tally != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.tally, 1ULL);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.batch || (a.guard != nullptr && *a.guard == 0)) return;
+  if (b >= a.batch) return;
   const int n = a.n;
   const int n4 = (n + 3) / 4 * 4;
   const uint8_t* nodes = a.nodes + b * a.nodes_s0;
@@ -997,6 +1001,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     mpt_walk_warp_kernel(const WalkArgs a, const WarpLayout L) {
   extern __shared__ __align__(16) uint8_t smem[];
   if (a.guard != nullptr && *a.guard == 0) return;  // the whole block
+  if (a.tally != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.tally, 1ULL);
   const int gi = threadIdx.x / G;  // the group's proof slot in the block
   const int b = blockIdx.x * (kWarps * 32 / G) + gi;
   if (b >= a.batch) return;  // the whole group
@@ -1174,20 +1179,15 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // guard[0] = 1 if any proof's overflow word (out[b * 6 + 4]) is set, else
-// 0; a set guard adds one to *tally. One block: a batch's flags are a few
-// KB.
+// 0. One block: a batch's flags are a few KB.
 __global__ void __launch_bounds__(1024)
-    walk_guard_kernel(const int32_t* out, int batch, int32_t* guard,
-                      unsigned long long* tally) {
+    walk_guard_kernel(const int32_t* out, int batch, int32_t* guard) {
   int any = 0;
   for (int b = threadIdx.x; b < batch; b += blockDim.x) {
     any |= out[(long long)b * 6 + 4] != 0;
   }
   any = __syncthreads_or(any);
-  if (threadIdx.x == 0) {
-    *guard = any;
-    if (any) atomicAdd(tally, 1ULL);
-  }
+  if (threadIdx.x == 0) *guard = any;
 }
 
 int round16(long long x) { return (int)((x + 15) / 16 * 16); }
@@ -1282,8 +1282,8 @@ extern "C" void zkp_walk_layout(const WalkArgs* args, int* out) {
 
 // the guard of a guarded `exact` launch (walk_guard_kernel)
 extern "C" int zkp_walk_guard(const int32_t* out, int batch, int32_t* guard,
-                              unsigned long long* tally, void* stream) {
-  walk_guard_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(out, batch, guard, tally);
+                              void* stream) {
+  walk_guard_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(out, batch, guard);
   return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,10 @@ import numpy as np
 from ..ops import mpt
 from ..oracle import EthTrie, keccak256
 from ..utils.config import BucketConfig
+from ..utils.device import resolve_device
 from ..utils.profiling import Meter
 from ..witness.pack import PackedProofs, PackingError, pack_proofs
-from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS, packed_to_tensors, resolve_device
+from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS, packed_to_tensors
 from .verifier import VerifyResult
 
 

@@ -40,10 +40,10 @@ import torch
 
 from ..ops import mpt
 from ..ops.rlp import item_offsets
+from ..utils.device import resolve_device
 from ..utils.profiling import Meter
 from ..witness.pack import PackedProofs, pack_proofs
-from ..witness_bridge import (BATCH_FIELDS, POOL_FIELDS, packed_to_tensors,
-                              resolve_device)
+from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS, packed_to_tensors
 
 _CODES = (mpt.FOUND, mpt.EXCLUDED, mpt.INVALID)
 
@@ -256,28 +256,21 @@ def sweep_resident(global_packed: PackedProofs, index_batches,
     counts = _Counts(dev)
     kw = dict(max_value_len=max_value_len, max_steps=max_steps, dev=dev)
     t0 = time.perf_counter()
-    if fused:
-        sel_all = np.stack([np.asarray(s, dtype=np.int64) for s in index_batches])
-        d_sel = torch.from_numpy(sel_all).to(dev)
-        td = time.perf_counter()
-        with _sync_check(forbid_sync, dev):
-            for k in range(sel_all.shape[0]):
-                counts.add(_verify_sel(d_sel[k], r, tables, **kw))
-        dispatch_s = time.perf_counter() - td
-        nbatches, total = sel_all.shape[0], int(sel_all.size)
-        td = time.perf_counter()
-    else:
-        total = nbatches = 0
-        dispatch_s = 0.0
-        with _sync_check(forbid_sync, dev):
-            for sel in index_batches:
-                sel = np.asarray(sel)
-                td = time.perf_counter()
-                counts.add(_verify_sel(_to_device(sel, np.int64, dev), r, tables, **kw))
-                dispatch_s += time.perf_counter() - td
-                total += sel.shape[0]
-                nbatches += 1
-        td = time.perf_counter()
+    if fused:  # one upload; the batches are its rows
+        index_batches = torch.from_numpy(
+            np.stack([np.asarray(s, dtype=np.int64) for s in index_batches])).to(dev)
+    total = nbatches = 0
+    dispatch_s = 0.0
+    with _sync_check(forbid_sync, dev):
+        for sel in index_batches:
+            td = time.perf_counter()
+            if not fused:
+                sel = _to_device(sel, np.int64, dev)
+            counts.add(_verify_sel(sel, r, tables, **kw))
+            dispatch_s += time.perf_counter() - td
+            total += sel.shape[0]
+            nbatches += 1
+    td = time.perf_counter()
     totals = counts.read()
     drain_s = time.perf_counter() - td
     return _result(totals, total, time.perf_counter() - t0, meter, pack_seconds=pack_s,
@@ -324,7 +317,7 @@ def sweep_resident_epochs(global_packed: PackedProofs, epochs: int, batch: int,
         for e in range(epochs):
             for s0 in starts:
                 counts.add(epoch_batch(t, s0, batch, (salt + e) & 0xFF, max_value_len,
-                                       max_steps, dev))
+                                       max_steps, dev)[0])
     dispatch_s = time.perf_counter() - t0
     totals = counts.read()
     dt = time.perf_counter() - t0
@@ -348,16 +341,16 @@ def epoch_batch(t: dict, s0: int, batch: int, ctr: int, max_value_len: int = 128
                 max_steps=None, dev="cuda"):
     """One window of the epoch sweep: rows s0 .. s0 + batch of the tables
     `t` (epoch_tables), byte N - 1 of each node row set to `ctr` in place,
-    walked in `hinted` mode. Returns the statuses i32 [batch]."""
+    walked in `hinted` mode. Returns (status i32 [batch], values u8
+    [batch, max_value_len], value_lens i32 [batch])."""
     w = slice(s0, s0 + batch)
     nodes = t["nodes"]
     nodes[w, :, nodes.shape[2] - 1] = ctr
     dh = t["dh"][w]
-    status, _, _ = mpt.verify_proofs_prehashed(
+    return mpt.verify_proofs_prehashed(
         nodes[w], t["lens"][w], t["num"][w], dh[..., :32], t["roots"][w], t["knib"][w],
         t["klen"][w], hints=dh[..., 32:], max_value_len=max_value_len,
         max_steps=max_steps, device=dev)
-    return status
 
 
 def sweep_entries(entry_batches, max_nodes: int, node_len: int,

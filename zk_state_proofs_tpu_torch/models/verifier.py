@@ -22,9 +22,9 @@ from ..ops import mpt
 from ..ops.account import decode_account
 from ..ops.keccak_cuda import keccak256_cuda
 from ..ops.rlp import bytes_to_nibbles_device
+from ..utils.device import resolve_device
 from ..witness.pack import PackedProofs, pack_proofs
-from ..witness_bridge import (BATCH_FIELDS, POOL_FIELDS, packed_to_tensors,
-                              resolve_device)
+from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS, packed_to_tensors
 
 
 @dataclass

@@ -78,7 +78,7 @@ def _declare(lib) -> None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.zkp_walk_guard.restype = ctypes.c_int
     lib.zkp_walk_guard.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_void_p, ctypes.c_void_p]
+                                   ctypes.c_void_p]
     lib.zkp_walk_layout.restype = None
     lib.zkp_walk_layout.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.zkp_walk_args_size.restype = ctypes.c_int

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..oracle.trie import EMPTY_ROOT
-from ..witness_bridge import resolve_device
+from ..utils.device import resolve_device
 from . import mpt_cuda
 from .keccak_cuda import keccak256_cuda
 from .rlp import (bytes_to_nibbles_device, decode_node_bounded,

@@ -63,7 +63,7 @@ class WalkArgs(ctypes.Structure):
         ("batch", ctypes.c_int), ("d", ctypes.c_int), ("n", ctypes.c_int),
         ("kn", ctypes.c_int), ("max_steps", ctypes.c_int),
         ("max_value_len", ctypes.c_int), ("mode", ctypes.c_int),
-        ("guard", ctypes.c_void_p),
+        ("guard", ctypes.c_void_p), ("tally", ctypes.c_void_p),
     ]
 
 
@@ -98,11 +98,12 @@ def _word_aligned(nodes):
 
 def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
                key_lens, max_value_len, max_steps, hints, aligned, into=None,
-               guard=None):
+               guard=None, tally=None):
     """Check the inputs and allocate the outputs of one launch: (WalkArgs,
     out, values), or (None, out, values) for an empty batch. `into`: the
     (out, values) of an earlier launch on the same batch, written in
-    place; `guard`: the device int of a guarded launch."""
+    place; `guard`: the device int of a guarded launch; `tally`: a device
+    int64 the launch adds one to when it walks."""
     if nodes.device.type != "cuda":
         raise ValueError(f"walk_lanes: unsupported device {nodes.device}")
     if mode not in mpt.WALK_MODES:
@@ -148,16 +149,18 @@ def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
         hints.stride(0) if hinted else 0, hints.stride(1) if hinted else 0,
         out.data_ptr(), values.data_ptr(),
         b, d, n, kn, max_steps, max_value_len, _MODE_CODE[mode],
-        None if guard is None else guard.data_ptr())
+        None if guard is None else guard.data_ptr(),
+        None if tally is None else tally.data_ptr())
     args.keep = nodes  # a padded copy lives as long as the struct
     return args, out, values
 
 
-def _launch(entry, counts, mode, *tensors, aligned, into=None, guard=None):
+def _launch(entry, counts, mode, *tensors, aligned, into=None, guard=None,
+            tally=None):
     """One launch of the C entry point `entry` on walk_lanes' inputs,
     counted in `counts`; (out, values) as walk_lanes returns them."""
     args, out, values = _walk_args(mode, *tensors, aligned=aligned, into=into,
-                                   guard=guard)
+                                   guard=guard, tally=tally)
     if args is None:
         return out, values
     lib = load_library().lib
@@ -248,8 +251,7 @@ def guard_plain(out):
 def walk_guard(out):
     """The guard of the `exact` re-run (the predicate of the TPU path's
     jax.lax.cond): i32 [1], as guard_plain. A CUDA tensor launches the
-    guard kernel, which also adds one to the device tally (exact_tally)
-    when the guard is set; a CPU tensor takes guard_plain."""
+    guard kernel; a CPU tensor takes guard_plain."""
     if out.device.type == "cpu":
         return guard_plain(out)
     if out.device.type != "cuda" or out.dtype != torch.int32 or out.ndim != 2 \
@@ -259,8 +261,7 @@ def walk_guard(out):
     guard = torch.empty(1, dtype=torch.int32, device=out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     check_launch(load_library().lib.zkp_walk_guard(
-        out.data_ptr(), out.shape[0], guard.data_ptr(),
-        exact_tally(out.device).data_ptr(), stream), "walk guard kernel")
+        out.data_ptr(), out.shape[0], guard.data_ptr(), stream), "walk guard kernel")
     LAUNCHES["guard"] += 1
     return guard
 
@@ -270,7 +271,8 @@ def rerun_exact(out, values, args):
     overflow flag — the counterpart of the TPU path's jax.lax.cond. On the
     card the decision stays there: walk_guard writes the guard on the
     device, and the `exact` launch that follows returns at once where it
-    is 0, else overwrites out and values in place. A CPU batch tests
+    is 0, else overwrites out and values in place and adds one to the
+    device tally (exact_tally). A CPU batch tests
     guard_plain on the host. args: walk_lanes' positional inputs. Returns
     (out, values)."""
     if out.shape[0] == 0:
@@ -279,7 +281,7 @@ def rerun_exact(out, values, args):
     if out.device.type == "cpu":
         return walk_lanes("exact", *args) if bool(guard) else (out, values)
     return _launch("zkp_mpt_walk", LAUNCHES, "exact", *args, None, aligned=False,
-                   into=(out, values), guard=guard)
+                   into=(out, values), guard=guard, tally=exact_tally(out.device))
 
 
 def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,

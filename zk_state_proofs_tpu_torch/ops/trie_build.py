@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..oracle.trie import EMPTY_ROOT
-from ..witness_bridge import resolve_device
+from ..utils.device import resolve_device
 from .keccak_cuda import keccak256_cuda
 
 

@@ -19,18 +19,10 @@ import torch
 
 from . import native
 from .oracle import EthTrie, keccak256, rlp
+from .utils.device import resolve_device
 from .witness.builders import build_transaction_trie, get_all_transaction_proof_inputs
 from .witness.encoding import encode_transaction
 from .witness.pack import PackedProofs, pack_proofs
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device(device); a CUDA device without a card raises (there is
-    no silent CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but no CUDA device is available")
-    return dev
 
 
 def _t(a, dtype, device):
