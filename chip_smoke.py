@@ -102,12 +102,33 @@ Phases, each printing a line:
      reduction's every digest); run_merkle_circuit_batch over that block's
      256 borsh inputs commits the encoded txs; run_storage_circuit over one
      storage_world account's 8 slots commits their values, an absent slot
-     raises MissingKeyError.
+     raises MissingKeyError;
+ 17. the sharded layer (`parallel/`) at full size: world size 1 over NCCL
+     (a TCP store on 127.0.0.1), then two ranks over gloo sharing the one
+     card (spawned, each with its own deadline): verify_proofs_sharded on
+     the headline, verify_storage_grouped_sharded on the storage world,
+     compute_root_sharded on config 5's receipt trie (its receiptsRoot),
+     config 5's sweep_resident_epochs(mesh=) (16 epochs, 1,048,576
+     proofs) and sweep_entries(mesh=) over fresh batches, BatchVerifier
+     (mesh=) serving three requests, and dryrun_multichip; at world size 1
+     each result equals the unsharded call's bit for bit, and the two
+     ranks' results equal world size 1's; the dry run's launches are
+     counted apart from the full-size calls'; rates beside the card (one
+     card: no scaling figure);
+ 18. the CLI on the card (`zk_state_proofs_tpu_torch.__main__.main`, its
+     default device): selftest, verify-tx and diagnose on mainnet block
+     46147, verify-receipts --erc20 on fixtures/synthetic_block_64.json,
+     verify-storage on a synthetic getProof fixture and on its tampered
+     header (exit 1); each command's JSON and exit code equal the same
+     command with --device cpu; `python -m zk_state_proofs_tpu_torch
+     selftest` in a subprocess prints the in-process JSON; a Chrome trace
+     (utils.profiling.cuda_trace) of verify-tx on the card loads.
 
 K1 is a warp per message and K2 a warp per proof over a shared-memory slab
 (csrc/keccak.cu, csrc/mpt_walk.cu); K2's `exact` re-run is decided on the
 card by a guard kernel (csrc/mpt_walk.cu); the build phase prints ptxas's
-registers and spills (and static shared memory) for each kernel. Any failed check exits
+registers and spills (and static shared memory) for each kernel. Each
+phase prints its seconds, and the run its total. Any failed check exits
 non-zero. The next-to-last line is a JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Uses no JAX and nothing of the JAX
 package.
@@ -115,18 +136,25 @@ package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 try:
+    import torch.distributed as dist
+
     from zk_state_proofs_tpu_torch import native
+    from zk_state_proofs_tpu_torch.__main__ import main as cli_main
+    from zk_state_proofs_tpu_torch.entry import dryrun_multichip
     from zk_state_proofs_tpu_torch.models import (BatchVerifier, decode_receipt_value,
                                                   extract_erc20_transfers,
                                                   replicated_batches, run_merkle_circuit,
@@ -149,14 +177,19 @@ try:
     from zk_state_proofs_tpu_torch.ops.trie_build import compute_root
     from zk_state_proofs_tpu_torch.oracle import (EthTrie, MissingKeyError,
                                                   keccak256 as oracle_keccak, rlp)
+    from zk_state_proofs_tpu_torch.parallel import (compute_root_sharded, make_mesh,
+                                                    verify_proofs_sharded,
+                                                    verify_storage_grouped_sharded)
+    from zk_state_proofs_tpu_torch.parallel.multihost import free_port, initialize, run_ranks
     from zk_state_proofs_tpu_torch.utils.config import BucketConfig
-    from zk_state_proofs_tpu_torch.utils.profiling import (cuda_timer, device_profile,
-                                                           queued_timer)
+    from zk_state_proofs_tpu_torch.utils.profiling import (cuda_timer, cuda_trace,
+                                                           device_profile, queued_timer)
     from zk_state_proofs_tpu_torch.witness import (
         ERC20_TRANSFER_TOPIC, encode_receipt, encode_transaction,
         get_all_receipt_proof_inputs, get_all_transaction_proof_inputs,
         get_transaction_proof_input, host_item_offsets, load_fixture, pack_proofs,
-        synthetic_block)
+        save_fixture, synthetic_block)
+    from zk_state_proofs_tpu_torch.witness.encoding import block_hash
     from zk_state_proofs_tpu_torch.witness.trie_plan import plan_index_trie
     from zk_state_proofs_tpu_torch.witness.types import StorageProofInput
     from zk_state_proofs_tpu_torch.witness_bridge import (
@@ -181,6 +214,9 @@ SWEEP_BATCH = 4096
 SWEEP_BATCHES = 256
 SWEEP_SEED = 5            # the index batches' numpy Generator
 ROOT_BLOCK = (256, 5)     # synthetic_block(num_txs, seed): config 5's receipt-trie root
+PAR_ENTRY_BATCHES = 32    # sweep_entries(mesh=) batches in phase 17 (host packing bound)
+PAR_RANKS = 2             # gloo ranks sharing the one card in phase 17
+PAR_TIMEOUT_S = 420       # each spawned rank's deadline, and its collectives'
 # How device times are taken. torch.profiler lost kernel records in some
 # windows of this script's runs (fewer kernels than launched), so device
 # times come from CUDA events around calls queued behind a spin kernel.
@@ -231,6 +267,16 @@ def max_err(got, want):
     return err
 
 
+_CLOCK = {"start": time.time(), "last": time.time()}
+
+
+def stamp(label: str) -> None:
+    """Log the seconds since the previous stamp (the phase just run)."""
+    now = time.time()
+    log(f"[time] {label}: {now - _CLOCK['last']:.1f} s")
+    _CLOCK["last"] = now
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -266,6 +312,8 @@ def main() -> None:
                       if found else line.split("'")[1])
         elif "registers" in line or "spill" in line:
             log(f"[2 build] ptxas {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
+
+    stamp("phases 1-2 (device, build)")
 
     # ---- witnesses ----------------------------------------------------
     t0 = time.time()
@@ -358,6 +406,8 @@ def main() -> None:
         f"{int((ovf != 0).sum())}/{ovf.numel()} proofs and re-ran in exact "
         f"with the honest results; max abs err 0")
 
+    stamp("witness and phases 3-4 (K1, K2)")
+
     # ---- 5. main path through BatchVerifier ------------------------------
     bucket = BucketConfig.account()
     probe = BatchVerifier(bucket, N_ACCOUNTS, device=dev)
@@ -403,6 +453,8 @@ def main() -> None:
         f"proofs) in {serve_s:.3f} s host time incl. packing; headline "
         f"{head.counts()}; adversarial {adv_res.counts()}; all equal the plain "
         f"path on the card; launches {launches}")
+
+    stamp("phase 5 (accounts)")
 
     # ---- 6. timings ---------------------------------------------------
     nodes, pnodes = batch[0], pool[0]
@@ -470,6 +522,8 @@ def main() -> None:
     for mode, (km, pm) in k2.items():
         log(f"[6 time] K2 walk {mode}, {N_ACCOUNTS} proofs in {len(segs)} "
             f"segments: kernel {km:.4f} ms, plain {pm:.4f} ms on {card}")
+    stamp("phase 6 (timings)")
+
     # ---- 7-10. K2 bounded, K3, the storage path, their timings ----------
     sw = storage_witness(dev)
     bnd = phase_bounded(sw, adv_args, inline_entries, dev)
@@ -477,6 +531,7 @@ def main() -> None:
     sto = phase_storage(sw, card, dev)
     slot_args = sw["slot_args"]
     del sw
+    stamp("phases 7-10 (bounded, K3, storage)")
 
     # ---- 11-13. the hint modes, the block path, their timings -----------
     adv_ctx = {"args": adv_args, "hints": ahints, "steps": d_ + 6}
@@ -485,6 +540,7 @@ def main() -> None:
     blk = phase_blocks(txw, repo, dev)
     phase_block_timings(hctx, txw, hm["tx_result"], card)
     ab = phase_ab(head_segs, max_steps, slot_args, txw, pn, pl, psegs, card)
+    stamp("phases 11-14 (hint modes, blocks, A/B)")
     kn = batch[4].shape[1]
     bound = {"k1": keccak_bound(pl, psegs), "k3": keccak_bound(pl, ((pn.shape[0], pn.shape[1]),)),
              "hinted": walk_bound(batch[0], batch[1], batch[2], kn, 128, True),
@@ -500,18 +556,29 @@ def main() -> None:
     k1_err = max(k1_err, swp["err"]["k1"])
     for mode in ("hinted", "exact"):
         k2_err[mode] = max(k2_err[mode], swp["err"]["k2"])
+    stamp("phase 15 (sweeps)")
     rc = phase_roots_circuits(tx_block, card, dev)
+    stamp("phase 16 (roots, circuits)")
+
+    # ---- 17-18. the sharded layer and the CLI -----------------------------
+    par = phase_parallel(entries, swp, card, dev)
+    del swp["world"], swp["gp"]
+    stamp("phase 17 (parallel)")
+    cli = phase_cli(repo, card)
+    stamp("phase 18 (cli)")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "zk_state_proofs_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
     # ---- the kernels line -------------------------------------------------
     # each main path's launches, counted from zero over its own run (phases
-    # 5, 9, 11, 12, 15 and 16); `launches` is their sum. K2 `exact` also
+    # 5, 9, 11, 12, 15, 16, 17 and 18; phase 17's are its world-size-1
+    # run's and both spawned ranks'); `launches` is their sum. K2 `exact` also
     # gives the guarded launches that walked (`walked`, the device tally).
     by_path = {"accounts": launches, "storage": sto["launches"],
                "hint_modes": hm["launches"], "blocks": blk["launches"],
-               "sweeps": swp["launches"], "roots_circuits": rc["launches"]}
+               "sweeps": swp["launches"], "roots_circuits": rc["launches"],
+               "parallel": par["launches"], "cli": cli["launches"]}
     src = "zk_state_proofs_tpu_torch/csrc/"
     kernels = [kernel_row(
         "keccak256", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:122",
@@ -547,6 +614,7 @@ def main() -> None:
     log(f"[bound] the least time for each kernel's work: bytes over "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, 32-bit integer operations over "
         f"{INT32_OPS_PER_S / 1e12:.2f} T/s, the larger of the two")
+    log(f"[time] the whole run: {time.time() - _CLOCK['start']:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -705,7 +773,8 @@ def phase_sweeps(card, dev):
     err = sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev)
     del tables
 
-    return {"launches": launches, "guard": guard_check(card, dev), "err": err}
+    return {"launches": launches, "guard": guard_check(card, dev), "err": err, "world": w,
+            "gp": gp, "epochs": res["epochs"], "pool_rows": pool_rows}
 
 
 def sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev):
@@ -870,6 +939,333 @@ def phase_roots_circuits(tx_block, card, dev):
         f"committed the {len(values)} slot values of storage_world account 2, an absent "
         f"slot raised MissingKeyError ({host_s:.2f} s host time for the phase's calls); "
         f"launches {launches}")
+    return {"launches": launches}
+
+
+def entry_pool_rows(w, n):
+    """A fixed pool-row bucket for config 5's streamed entries
+    (bench_configs.py:577-583): the first batch's pool rows plus 12.5%,
+    rounded up to 128."""
+    probe = pack_proofs(next(w.entry_batches(1, SWEEP_BATCH, np.random.default_rng(5))),
+                        max_nodes=w.max_nodes, node_len=n)
+    return -(-int(probe.pool()[0].shape[0] * 1.125) // 128) * 128
+
+
+def parallel_witness(entries=None, sweep_witness=None):
+    """Phase 17's witnesses, built alike in every process: the headline
+    accounts and their three service requests, the storage world, config
+    5's receipt trie and sweep world."""
+    t0 = time.time()
+    if entries is None:
+        entries, _ = account_entries(N_ACCOUNTS)
+    w, gp = sweep_witness if sweep_witness is not None else (sweep_world(SWEEP_ACCOUNTS), None)
+    if gp is None:
+        gp = w.pack()
+    sto = storage_world(*STORAGE_WORLD)
+    fx = synthetic_block(*ROOT_BLOCK)
+    adv, inline = adversarial_entries(entries)
+    return {"entries": entries, "headline": pack_proofs(entries, node_len=576),
+            "requests": [entries, entries[::3], adv + inline + entries[:N_ACCOUNTS // 8]],
+            "storage": (*sto.pack(), sto.slots, sto.slot_accounts), "fx": fx,
+            "rplan": plan_index_trie([encode_receipt(r) for r in fx["receipts"]]),
+            "world": w, "gp": gp, "seconds": time.time() - t0}
+
+
+def parallel_checks(mesh, wit, dev):
+    """Every sharded entry point once over `mesh`, at full size, launches
+    counted from zero. Returns the outputs (numpy), the counts of the
+    sweeps, each call's seconds and the launches."""
+    w, gp = wit["world"], wit["gp"]
+    n = gp.nodes.shape[2]
+    epochs = SWEEP_BATCHES * SWEEP_BATCH // w.n_accounts
+    rows = entry_pool_rows(w, n)
+    zero_counts()
+    out, secs = {}, {}
+
+    def timed_call(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    # each call twice: the first pays for the group's first collectives
+    # (NCCL's communicator is made at its first use)
+    for call in ("first call", "again"):
+        out["verify"] = timed_call(f"verify_proofs_sharded, {call}",
+                                   lambda: verify_proofs_sharded(mesh, wit["headline"]))
+        out["storage"] = timed_call(f"verify_storage_grouped_sharded, {call}",
+                                    lambda: verify_storage_grouped_sharded(mesh,
+                                                                           *wit["storage"]))
+        out["root"] = timed_call(f"compute_root_sharded, {call}",
+                                 lambda: compute_root_sharded(mesh, wit["rplan"]))
+    res = sweep_resident_epochs(gp, epochs, SWEEP_BATCH, salt=7, max_steps=w.max_nodes,
+                                mesh=mesh, forbid_sync=True, device=dev.type)
+    out["epochs"] = [res.found, res.excluded, res.invalid, res.total, res.batches]
+    secs["sweep_resident_epochs"] = res.seconds
+    res = sweep_entries(w.entry_batches(PAR_ENTRY_BATCHES, SWEEP_BATCH,
+                                        np.random.default_rng(SWEEP_SEED + 2)),
+                        w.max_nodes, n, pool_rows=rows, mesh=mesh, forbid_sync=True,
+                        device=dev.type)
+    out["entries"] = [res.found, res.excluded, res.invalid, res.total, res.batches]
+    secs["sweep_entries"] = res.seconds
+    secs["its packing (worker thread)"] = res.pack_seconds
+    svc = BatchVerifier(BucketConfig.account(), N_ACCOUNTS, mesh=mesh, device=dev.type)
+    svc.warmup(wit["entries"])
+    served = timed_call("BatchVerifier.verify x3",
+                        lambda: [svc.verify(r) for r in wit["requests"]])
+    out["service"] = [(r.status, r.values, r.value_lens) for r in served]
+    launches = read_counts()
+    # the dry run's small shapes, counted apart from the full-size calls
+    zero_counts()
+    timed_call(f"dryrun_multichip({mesh.size})",
+               lambda: dryrun_multichip(mesh.size, device=dev.type))
+    return {"out": out, "seconds": secs, "launches": launches,
+            "dryrun_launches": read_counts(), "rank": mesh.rank, "mesh": repr(mesh),
+            "witness_seconds": wit["seconds"]}
+
+
+SIZES = ("N_ACCOUNTS", "STORAGE_WORLD", "ROOT_BLOCK", "SWEEP_ACCOUNTS", "SWEEP_BATCH",
+         "SWEEP_BATCHES", "SWEEP_SEED", "PAR_ENTRY_BATCHES", "DEVICE")
+
+
+def parallel_rank(sizes):
+    """One spawned rank of phase 17's gloo group, at the parent's sizes:
+    its own witnesses, then parallel_checks on the shared card."""
+    globals().update(sizes)
+    torch.set_num_threads(4)
+    mesh = make_mesh(device=DEVICE)
+    return parallel_checks(mesh, parallel_witness(), mesh.device)
+
+
+def same_outputs(got, want, what):
+    """Bit equality of two parallel_checks outputs (nested numpy)."""
+    if isinstance(want, dict):
+        check(got.keys() == want.keys(), f"{what}: keys {list(got)}, {list(want)} expected")
+        for k in want:
+            same_outputs(got[k], want[k], f"{what} {k}")
+    elif isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{what}: {len(got)} parts, {len(want)} expected")
+        for i, (g, x) in enumerate(zip(got, want)):
+            same_outputs(g, x, f"{what}[{i}]")
+    else:
+        g, x = np.asarray(got), np.asarray(want)
+        check(g.shape == x.shape and g.dtype == x.dtype and np.array_equal(g, x),
+              f"{what}: differs ({g.shape} {g.dtype} vs {x.shape} {x.dtype})")
+
+
+def phase_parallel(entries, swp, card, dev):
+    """Phase 17: the sharded layer at world size 1 over NCCL (each result
+    against the unsharded call), then PAR_RANKS gloo ranks sharing the
+    card (each result against world size 1's)."""
+    wit = parallel_witness(entries, (swp["world"], swp["gp"]))
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    t0 = time.time()
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, backend=backend, timeout_s=PAR_TIMEOUT_S)
+    try:
+        mesh = make_mesh(device=dev.type)
+        one = parallel_checks(mesh, wit, dev)
+    finally:
+        dist.destroy_process_group()
+    one_s = time.time() - t0
+    out = one["out"]
+
+    # world size 1 against the unsharded calls
+    ref = verify_merkle_batch(wit["headline"], device=dev)
+    same_outputs(out["verify"][:3], (ref.status, ref.values, ref.value_lens),
+                 "verify_proofs_sharded against verify_merkle_batch")
+    check(out["verify"][3].tolist() == [N_ACCOUNTS, 0, 0],
+          f"verify_proofs_sharded counts {out['verify'][3].tolist()}")
+    ap, sp, slots, sa = wit["storage"]
+    sref = verify_storage_grouped(ap, sp, slots, sa, device=dev)
+    same_outputs(out["storage"][:5], (sref.account_status, sref.storage_root,
+                                      sref.slot_status, sref.slot_values,
+                                      sref.slot_value_lens),
+                 "verify_storage_grouped_sharded against verify_storage_grouped")
+    check(out["storage"][5].tolist() == [sp.batch, 0, 0],
+          f"sharded storage counts {out['storage'][5].tolist()}")
+    same_outputs(out["root"], compute_root(wit["rplan"], device=dev),
+                 "compute_root_sharded against compute_root")
+    check("0x" + bytes(out["root"][0]).hex() == wit["fx"]["block"]["receiptsRoot"],
+          "compute_root_sharded differs from the block's receiptsRoot")
+    e = swp["epochs"]
+    check(out["epochs"] == [e.found, e.excluded, e.invalid, e.total, e.batches]
+          and e.found == e.total == SWEEP_BATCHES * SWEEP_BATCH,
+          f"sharded epoch sweep {out['epochs']}, unsharded {e}")
+    total = PAR_ENTRY_BATCHES * SWEEP_BATCH
+    check(out["entries"] == [total, 0, 0, total, PAR_ENTRY_BATCHES],
+          f"sharded sweep_entries {out['entries']}")
+    plain = BatchVerifier(BucketConfig.account(), N_ACCOUNTS, device=dev)
+    plain.warmup(wit["entries"])  # the pool-row bucket of the headline, as the mesh's
+    for i, req in enumerate(wit["requests"]):
+        r = plain.verify(req)
+        same_outputs(out["service"][i], (r.status, r.values, r.value_lens),
+                     f"BatchVerifier(mesh=) request {i} against BatchVerifier")
+    check(bool((out["service"][0][0] == mpt.FOUND).all()), "a headline request proof not FOUND")
+    for name in ("keccak256", "hinted", "bounded", "guard", "exact"):
+        check(one["launches"][name] > 0, f"the sharded paths launched the {name} kernel no time")
+    log(f"[17 parallel] world size 1 over {backend} ({one['mesh']}): verify_proofs_sharded "
+        f"on the {N_ACCOUNTS}-proof headline, verify_storage_grouped_sharded on "
+        f"storage_world{STORAGE_WORLD}, compute_root_sharded on the receipt trie of "
+        f"synthetic_block{ROOT_BLOCK} (its receiptsRoot), BatchVerifier(mesh=) on 3 requests: "
+        f"each equal to the unsharded call bit for bit; sweep_resident_epochs(mesh=) "
+        f"{out['epochs'][3]} proofs in {out['epochs'][4]} batches and sweep_entries(mesh=) "
+        f"{out['entries'][3]} proofs: every proof FOUND, the unsharded counts; "
+        f"dryrun_multichip(1) ok; {one_s:.1f} s; launches {one['launches']}, the dry run's "
+        f"apart {one['dryrun_launches']}")
+
+    # PAR_RANKS gloo ranks sharing the card: each builds its own witnesses
+    t0 = time.time()
+    ranks = run_ranks(parallel_rank, PAR_RANKS, "gloo", args=({k: globals()[k] for k in SIZES},),
+                      timeout_s=PAR_TIMEOUT_S)
+    ranks_s = time.time() - t0
+    for r in ranks:
+        same_outputs(r["out"], out, f"rank {r['rank']} of {PAR_RANKS} against world size 1")
+        for name in ("keccak256", "hinted", "bounded", "guard", "exact"):
+            check(r["launches"][name] > 0,
+                  f"rank {r['rank']} launched the {name} kernel no time")
+    built = ", ".join(f"{r['witness_seconds']:.1f}" for r in ranks)
+    log(f"[17 parallel] {PAR_RANKS} ranks over gloo on one card ({ranks[0]['mesh']}, "
+        f"{ranks[1]['mesh']}): every output equal to world size 1's bit for bit (the same "
+        f"{out['epochs'][3]}-proof epoch sweep and {out['entries'][3]}-proof entries sweep); "
+        f"dryrun_multichip({PAR_RANKS}) ok; {ranks_s:.1f} s incl. spawning and each rank's "
+        f"witnesses ({built} s); launches by rank {[r['launches'] for r in ranks]}, the dry "
+        f"run's apart {[r['dryrun_launches'] for r in ranks]}")
+    runs = [(f"world 1, {backend}", one)]
+    runs += [(f"rank {r['rank']} of {PAR_RANKS}, gloo", r) for r in ranks]
+    for label, run in runs:
+        sec = run["seconds"]
+        log(f"[17 time] {label}: " + "; ".join(f"{k} {v:.4f} s" for k, v in sec.items())
+            + f"; epoch sweep {out['epochs'][3] / sec['sweep_resident_epochs']:,.0f} proofs/s, "
+            f"entries {out['entries'][3] / sec['sweep_entries']:,.0f} proofs/s (counts_only) "
+            f"on {card}")
+    log("[17 time] one card: the ranks share it, so no multi-card scaling figure is measured")
+    launches = dict(one["launches"])
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches}
+
+
+def getproof_fixture():
+    """An eth_getProof-schema fixture from an oracle-built world state, with
+    a real header layout whose hash anchors it like a mainnet block (the
+    recipe of tests/test_mainnet_getproof.py `_synthetic_getproof_fixture`,
+    here with the native hasher, which gives the oracle's bytes)."""
+    nk = default_hasher()
+    addr = bytes.fromhex("dac17f958d2ee523a2206206994597c13d831ec7")
+    st = EthTrie(hasher=nk)
+    slot0 = bytes(32)
+    supply = 39_035_000_000_000
+    st.insert(nk(slot0), rlp.encode_int(supply))
+    for i in range(1, 200):
+        st.insert(nk(i.to_bytes(32, "big")), rlp.encode_int(7 * i))
+    sroot = st.root_hash()
+    code_hash = nk(b"usdt-code")
+    world = EthTrie(hasher=nk)
+    world.insert(nk(addr), rlp.encode([rlp.int_to_min_bytes(1), rlp.int_to_min_bytes(0),
+                                       sroot, code_hash]))
+    for i in range(500):
+        world.insert(nk(b"filler-%d" % i), rlp.encode([
+            rlp.int_to_min_bytes(i + 1), rlp.int_to_min_bytes(10**18),
+            nk(b"sr%d" % i), nk(b"ch%d" % i)]))
+    empty = "0x56e81f171bcc55a6ff8345e692c0f86e5b48e01b996cadc001622fb5e363b421"
+    header = {
+        "parentHash": "0x" + "ab" * 32,
+        "sha3Uncles": "0x1dcc4de8dec75d7aab85b567b6ccd41ad312451b948a7413f0a142fd40d49347",
+        "miner": "0x" + "42" * 20, "stateRoot": "0x" + world.root_hash().hex(),
+        "transactionsRoot": empty, "receiptsRoot": empty, "logsBloom": "0x" + "00" * 256,
+        "difficulty": "0x20000", "number": "0x112a880", "gasLimit": "0x1c9c380",
+        "gasUsed": "0x0", "timestamp": "0x66aabbcc", "extraData": "0x",
+        "mixHash": "0x" + "00" * 32, "nonce": "0x0000000000000000",
+    }
+    header["hash"] = "0x" + block_hash(header).hex()
+    return {
+        "address": "0x" + addr.hex(), "storageKeys": ["0x" + slot0.hex()], "block": header,
+        "proof": {
+            "address": "0x" + addr.hex(), "balance": "0x0",
+            "codeHash": "0x" + code_hash.hex(), "nonce": "0x1",
+            "storageHash": "0x" + sroot.hex(),
+            "accountProof": ["0x" + x.hex() for x in world.get_proof(nk(addr))],
+            "storageProof": [{"key": "0x" + slot0.hex(), "value": hex(supply),
+                              "proof": ["0x" + x.hex() for x in st.get_proof(nk(slot0))]}],
+        },
+    }
+
+
+def run_cli(argv):
+    """(exit code, stdout) of the port's CLI run in this process."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_cli(repo, card):
+    """Phase 18: the port's CLI on the card, its default device, against
+    the same commands with --device cpu; the module entry in a subprocess."""
+    with tempfile.TemporaryDirectory() as tmp:
+        block = load_fixture(os.path.join(repo, "fixtures", "mainnet_block_46147.json"))
+        block_path = os.path.join(tmp, "block_46147.json")
+        save_fixture(block_path, {"block": block})
+        gp = getproof_fixture()
+        proof_path = os.path.join(tmp, "proof.json")
+        save_fixture(proof_path, gp)
+        gp["block"]["gasUsed"] = "0x1"  # the header no longer hashes to its pinned hash
+        tampered_path = os.path.join(tmp, "tampered.json")
+        save_fixture(tampered_path, gp)
+        commands = [(["selftest"], 0), (["verify-tx", "--fixture", block_path], 0),
+                    (["diagnose", "--fixture", block_path], 0),
+                    (["verify-receipts", "--erc20", "--fixture",
+                      os.path.join(repo, "fixtures", "synthetic_block_64.json")], 0),
+                    (["verify-storage", "--fixture", proof_path], 0),
+                    (["verify-storage", "--fixture", tampered_path], 1)]
+        zero_counts()
+        t0 = time.time()
+        on_card = [run_cli(argv) for argv, _ in commands]  # the default device: the card
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        card_s = time.time() - t0
+        launches = read_counts()
+        t0 = time.time()
+        on_cpu = [run_cli(argv + ["--device", "cpu"]) for argv, _ in commands]
+        cpu_s = time.time() - t0
+        # the Chrome-trace export (utils.profiling.cuda_trace) around one
+        # command on the card, after the counts were read
+        with cuda_trace(os.path.join(tmp, "trace")):
+            traced = run_cli(commands[1][0])
+        with open(os.path.join(tmp, "trace", "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    for (argv, want_rc), got, cpu in zip(commands, on_card, on_cpu):
+        check(got == cpu, f"CLI {argv[0]}: the card gave {got}, --device cpu {cpu}")
+        check(got[0] == want_rc, f"CLI {argv[0]}: exit code {got[0]}, {want_rc} expected")
+    outs = [json.loads(out) for _, out in on_card]
+    check(outs[0]["ok"] and outs[1]["counts"]["found"] == 1 and outs[2]["failures"] == []
+          and outs[3]["counts"]["found"] == 64 and outs[3]["erc20_transfers"]
+          and outs[4]["account_found"] and outs[4]["slots"][0]["value"] != "0x"
+          and outs[5]["error"] == "header-anchor mismatch",
+          f"unexpected CLI output: {outs}")
+    for name in ("keccak256", "hinted", "bounded", "guard", "exact"):
+        check(launches[name] > 0, f"the CLI launched the {name} kernel no time")
+    check(traced == on_card[1] and events, f"cuda_trace: {traced}, {len(events)} events")
+    kernel_events = sum(e.get("cat") == "kernel" for e in events)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "zk_state_proofs_tpu_torch", "selftest"],
+                          cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    module_s = time.time() - t0
+    check(proc.returncode == 0 and proc.stdout == on_card[0][1],
+          f"python -m zk_state_proofs_tpu_torch selftest: exit {proc.returncode}, "
+          f"{proc.stdout!r} {proc.stderr[-2000:]}")
+    log(f"[18 cli] {', '.join(argv[0] for argv, _ in commands)} (the last on a tampered "
+        f"header, exit 1) on the card, the CLI's default device: JSON and exit codes equal "
+        f"--device cpu's; {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; `python -m "
+        f"zk_state_proofs_tpu_torch selftest` in a subprocess printed the same JSON "
+        f"({module_s:.1f} s incl. start-up); launches {launches} on {card}; cuda_trace "
+        f"around verify-tx wrote a Chrome trace of {len(events)} events, {kernel_events} "
+        f"of them the card's kernels")
     return {"launches": launches}
 
 

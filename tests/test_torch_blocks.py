@@ -81,10 +81,12 @@ def test_block_subset_indices_match_jax():
     assert got.value(1) == encode_transaction(fx["block"]["transactions"][9])
 
 
-def test_mainnet_block_46147_and_tamper():
+def test_mainnet_block_46147_and_tamper(tmp_path, capsys, monkeypatch):
     """The first mainnet transaction verifies under the block's pinned
     transactionsRoot; a drifted tx field fails the rebuilt root, and a
-    flipped proof byte turns the proof INVALID."""
+    flipped proof byte turns the proof INVALID. The port's CLI on the CPU
+    prints the JAX CLI's JSON and exit code for every command, the record
+    commands through a stub RPC client."""
     block = load_fixture(FIXTURE)
     assert block == json.loads(FIXTURE.read_text())
     got = verify_block_transactions(block, device="cpu")
@@ -104,6 +106,60 @@ def test_mainnet_block_46147_and_tamper():
     entries = [inp.as_entry(), (inp.root_hash, [bytes(node)], inp.key)]
     res = verify_merkle_batch(pack_proofs(entries), max_value_len=len(node), device="cpu")
     assert res.status.tolist() == [tmpt.FOUND, tmpt.INVALID] and res.value(0) == raw
+
+    from tests.test_mainnet_getproof import _synthetic_getproof_fixture
+    from zk_state_proofs_tpu.__main__ import main as jax_main
+    from zk_state_proofs_tpu.witness import networks as jnetworks
+    from zk_state_proofs_tpu_torch.__main__ import main
+    from zk_state_proofs_tpu_torch.witness import networks, rpc, save_fixture
+
+    def both(*argv):
+        rc = main([*argv, "--device", "cpu"])
+        out = capsys.readouterr().out
+        jrc = jax_main(list(argv))
+        assert (rc, out) == (jrc, capsys.readouterr().out), argv
+        return rc, json.loads(out)
+
+    block_path = tmp_path / "block_46147.json"
+    save_fixture(block_path, {"block": block})
+    rc, out = both("verify-tx", "--fixture", str(block_path))
+    assert rc == 0 and out == {"counts": {"found": 1, "excluded": 0, "invalid": 0}, "batch": 1}
+    rc, out = both("diagnose", "--fixture", str(block_path))
+    assert rc == 0 and out["failures"] == []
+    synthetic = FIXTURE.parent / "synthetic_block_64.json"
+    rc, out = both("verify-receipts", "--erc20", "--fixture", str(synthetic))
+    assert rc == 0 and out["counts"]["found"] == 64 and out["erc20_transfers"]
+    rc, out = both("selftest")
+    assert rc == 0 and out["ok"]
+    gp, expected_hash = _synthetic_getproof_fixture()
+    gp["block"]["hash"] = "0x" + expected_hash.hex()
+    proof_path = tmp_path / "proof.json"
+    save_fixture(proof_path, gp)
+    rc, out = both("verify-storage", "--fixture", str(proof_path))
+    assert rc == 0 and out["account_found"] and out["slots"][0]["value"] != "0x"
+    gp["block"]["gasUsed"] = "0x1"  # the header no longer hashes to its pinned hash
+    save_fixture(proof_path, gp)
+    rc, out = both("verify-storage", "--fixture", str(proof_path))
+    assert rc == 1 and out["error"] == "header-anchor mismatch"
+
+    def transport(url, payload):
+        return {"result": {"eth_getBlockByHash": block, "eth_getBlockReceipts": [],
+                           "eth_getBlockByNumber": gp["block"],
+                           "eth_getProof": gp["proof"]}[payload["method"]]}
+
+    def stub_client(network, url=None, transport_=None):
+        return rpc.JsonRpcClient("http://stub", transport=transport)
+
+    monkeypatch.setattr(networks, "client_for", stub_client)
+    monkeypatch.setattr(jnetworks, "client_for", stub_client)
+    for argv in (["record-block", "--hash", block["hash"]],
+                 ["record-proof", "--address", gp["address"], "--slot", "0x0"]):
+        outs = []
+        for run, name in ((main, "port.json"), (jax_main, "jax.json")):
+            assert run([*argv, "--out", str(tmp_path / name)]) == 0
+            outs.append((capsys.readouterr().out.replace(name, ""),
+                         (tmp_path / name).read_text()))
+        assert outs[0] == outs[1], argv
 
 
 def test_tx_geometry_recipe_matches_jax():

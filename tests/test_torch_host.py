@@ -3,6 +3,8 @@ witness modules, the trie planner, `native`) against the JAX package's,
 whose copies they are: identical packed arrays, pools, hints and segment schedules, identical
 digests, encodings, tries and proofs."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -90,9 +92,14 @@ def test_oracle_keccak_rlp_and_trie_match_jax():
         oracle.verify_merkle_proof(ours.root_hash(), proof[:-1], keys[3])
 
 
-def test_block_host_copies_match_jax():
+def test_block_host_copies_match_jax(monkeypatch, tmp_path):
     """The port's `witness.encoding`, `types`, `builders` and `fixtures`
-    give the JAX package's bytes, roots and proofs."""
+    give the JAX package's bytes, roots and proofs; its `witness.models`,
+    `rpc`, `networks`, `constants`, the account and storage builders, the
+    fixture recorders and `utils.errors` / `config` / `profiling.timed`
+    behave as the originals (and `profiling.cuda_trace` writes a Chrome
+    trace of a CPU call), offline (a stub transport stands in for
+    the network)."""
     from pathlib import Path
 
     from zk_state_proofs_tpu.witness import builders as jbuilders
@@ -163,3 +170,118 @@ def test_block_host_copies_match_jax():
     with pytest.raises(builders.WitnessError):
         builders.get_receipt_proof_input(dict(block, receiptsRoot="0x" + "00" * 32),
                                          receipts, 0)
+
+    # the host modules of the CLI: typed RPC models on recorded responses
+    from tests.test_mainnet_getproof import _synthetic_getproof_fixture
+    from tests.test_models_rpc import OP_BLOCK, PROOF_RESPONSE
+    from zk_state_proofs_tpu.utils import config as jconfig
+    from zk_state_proofs_tpu.utils import errors as jerrors
+    from zk_state_proofs_tpu.witness import constants as jconstants
+    from zk_state_proofs_tpu.witness import models as jmodels
+    from zk_state_proofs_tpu.witness import networks as jnetworks
+    from zk_state_proofs_tpu.witness import rpc as jrpc
+    from zk_state_proofs_tpu_torch.utils import config, errors, profiling
+    from zk_state_proofs_tpu_torch.witness import constants, models, networks, rpc
+
+    from dataclasses import asdict
+
+    arb = {"hash": "0x" + "cd" * 32, "number": "0x12d687", "stateRoot": "0x" + "ef" * 32}
+    for name, resp in (("OpBlock", OP_BLOCK), ("AccountProofResult", PROOF_RESPONSE),
+                       ("ArbBlock", arb)):
+        assert asdict(getattr(models, name).from_rpc(resp)) == \
+            asdict(getattr(jmodels, name).from_rpc(resp)), name
+    for bad in ({**OP_BLOCK, "stateRoot": "0xzz"},
+                {**OP_BLOCK, "transactions": [{"type": "0x2", "chainId": "0x1"}]}):
+        with pytest.raises(builders.WitnessError):
+            models.OpBlock.from_rpc(bad)
+        with pytest.raises(jbuilders.WitnessError):
+            jmodels.OpBlock.from_rpc(bad)
+    with pytest.raises(builders.WitnessError, match="accountProof"):
+        models.AccountProofResult.from_rpc({**PROOF_RESPONSE, "accountProof": "0xff"})
+    # the account and storage builders on the recorded response and on a
+    # getProof-schema fixture
+    addr = PROOF_RESPONSE["address"]
+    assert builders.get_account_proof_input(PROOF_RESPONSE, b"\x00" * 32, addr).to_borsh() == \
+        jbuilders.get_account_proof_input(PROOF_RESPONSE, b"\x00" * 32, addr).to_borsh()
+    gp, _ = _synthetic_getproof_fixture()
+    args = (gp["proof"], encoding._data(gp["block"]["stateRoot"]), gp["address"],
+            gp["storageKeys"])
+    ours = builders.get_storage_proof_input(*args)
+    assert ours.to_borsh() == jbuilders.get_storage_proof_input(*args).to_borsh()
+    assert ours.storage_keys == [b"\x00" * 32] and ours.account_key == \
+        oracle.keccak256(encoding._data(gp["address"]))
+    with pytest.raises(builders.WitnessError, match="missing"):
+        builders.get_storage_proof_input(*args[:3], ["0x5"])
+    # RPC clients, networks and the recorders through a stub transport
+    calls = []
+
+    def transport(url, payload):
+        calls.append((url, payload["method"], payload["params"]))
+        method = payload["method"]
+        if method == "eth_getBlockByHash":
+            return {"result": block}
+        if method == "eth_getBlockReceipts":
+            return {"result": receipts}
+        if method == "eth_getBlockByNumber":
+            return {"result": gp["block"]}
+        if method == "eth_getProof":
+            return {"result": gp["proof"]}
+        return {"error": {"code": -32601, "message": "no such method"}}
+
+    for net in ("ethereum", "optimism", "arbitrum"):
+        got = networks.client_for(networks.NetworkEvm(net), url="http://stub", transport=transport)
+        want = jnetworks.client_for(jnetworks.NetworkEvm(net), url="http://stub",
+                                    transport=transport)
+        assert type(got).__name__ == type(want).__name__ and got.url == want.url
+    client = rpc.EthereumClient(url="http://stub", transport=transport)
+    jclient = jrpc.EthereumClient(url="http://stub", transport=transport)
+    path, jpath = tmp_path / "block.json", tmp_path / "jblock.json"
+    assert fixtures.record_block_fixture(client, block["hash"], path) == \
+        jfixtures.record_block_fixture(jclient, block["hash"], jpath)
+    assert path.read_text() == jpath.read_text()
+    assert fixtures.load_fixture(path) == {"block": block, "receipts": receipts}
+    assert fixtures.record_proof_fixture(client, gp["address"], gp["storageKeys"],
+                                         path=path) == \
+        jfixtures.record_proof_fixture(jclient, gp["address"], gp["storageKeys"], path=jpath)
+    assert path.read_text() == jpath.read_text()
+    eth = networks.NetworkEvm.ETHEREUM
+    assert networks.get_storage_proof_inputs(client, gp["address"], gp["storageKeys"],
+                                             eth).to_borsh() == ours.to_borsh()
+    assert networks.get_receipt_proof_inputs(client, block["hash"], 2, eth).to_borsh() == \
+        jnetworks.get_receipt_proof_inputs(jclient, block["hash"], 2,
+                                           jnetworks.NetworkEvm.ETHEREUM).to_borsh()
+    with pytest.raises(builders.WitnessError):
+        networks.get_transaction_proof_inputs(client, block["hash"], 0,
+                                              networks.NetworkEvm.ARBITRUM)
+    with pytest.raises(rpc.RpcError, match="no such method"):
+        client.call("eth_chainId", [])
+    with pytest.raises(jrpc.RpcError, match="no such method"):
+        jclient.call("eth_chainId", [])
+    monkeypatch.delenv("INFURA", raising=False)
+    with pytest.raises(RuntimeError):
+        rpc.EthereumClient(transport=transport)
+    # constants, errors and the ZKP_ environment overrides
+    assert {k: v for k, v in vars(constants).items() if k.isupper()} == \
+        {k: v for k, v in vars(jconstants).items() if k.isupper()}
+    assert rpc.ETHEREUM_RPC_URL == jrpc.ETHEREUM_RPC_URL
+    assert errors.__all__ == jerrors.__all__
+    assert errors.VerificationError is oracle.TrieError
+    assert issubclass(errors.MissingKeyError, errors.VerificationError)
+    assert errors.PackingError.__name__ == jerrors.PackingError.__name__
+    monkeypatch.setenv("ZKP_BATCH_SIZE", "1024")
+    monkeypatch.setenv("ZKP_MESH_AXIS", "rows")
+    monkeypatch.setenv("INFURA", "k-123")
+    for kw in ({}, {"batch_size": 64}):
+        assert vars(config.Config.from_env(**kw)) == vars(jconfig.Config.from_env(**kw))
+    cfg = config.Config.from_env(batch_size=64)
+    assert (cfg.batch_size, cfg.mesh_axis, cfg.infura_key) == (64, "rows", "k-123")
+    monkeypatch.setenv("ZKP_INFURA_KEY", "k-env")
+    assert config.Config.from_env().infura_key == "k-env"
+    holder = {}
+    with profiling.timed(holder, "t", sync=torch.zeros(1)):
+        pass
+    assert holder["t"] >= 0
+    with profiling.cuda_trace(tmp_path / "trace"):
+        torch.arange(64).reshape(8, 8).sum(0)
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::sum" for e in events), events[:5]

@@ -187,8 +187,15 @@ def test_sweeps_count_as_jax(mixed):
     _assert_counts(res, epoch0, len(starts) * BATCH, len(starts))
     with pytest.raises(ValueError):
         sweep_resident_epochs(packed, epochs=1, batch=n + 1, **kw)
-    for call in (lambda: sweep([], mesh=object(), device="cpu"),
-                 lambda: sweep_resident_epochs(packed, 1, BATCH, mesh=object(), **kw),
-                 lambda: sweep_entries([], 4, 64, mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="parallel"):
-            call()
+    # a one-rank mesh (no process group) counts as the unsharded sweeps
+    from zk_state_proofs_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    res = sweep_resident_epochs(packed, epochs=1, batch=BATCH, salt=0x7F, mesh=mesh, **kw)
+    _assert_counts(res, epoch0, len(starts) * BATCH, len(starts))
+    res = sweep(replicated_batches(sub, 2), mesh=mesh, device="cpu")
+    _assert_counts(res, [2 * c for c in _counts(status[sels[0]])], 2 * BATCH, 2)
+    res = sweep_entries(([entries[i] for i in s] for s in sels), max_nodes=max_nodes,
+                        node_len=node_len, pool_rows=256, mesh=mesh, forbid_sync=True,
+                        device="cpu")
+    _assert_counts(res, want, total, 3)

@@ -158,8 +158,15 @@ def test_batch_verifier_matches_jax_service():
     assert (got.status[:3] == tmpt.INVALID).all()
     assert tsvc.stats.batches == 3 and tsvc.stats.proofs == 64 + 26 + 7
     assert tsvc.stats.found == jsvc.stats.found
-    with pytest.raises(NotImplementedError):
-        BatchVerifier(BucketConfig.account(), mesh=object(), device="cpu")
+    # a one-rank mesh (no process group) serves the same results
+    from zk_state_proofs_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    msvc = BatchVerifier(BucketConfig.account(), mesh=mesh, device="cpu", **kw)
+    for req in requests[1:]:
+        want, got = tsvc.verify(req), msvc.verify(req)
+        for f in ("status", "values", "value_lens"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
 
 
 def test_packed_to_tensors_roundtrip(headline_256):
@@ -185,7 +192,11 @@ def test_import_loads_neither_jax_nor_cuda():
         "import zk_state_proofs_tpu_torch.ops.mpt, zk_state_proofs_tpu_torch.ops.mpt_cuda\n"
         "import zk_state_proofs_tpu_torch.ops.keccak_cuda\n"
         "import zk_state_proofs_tpu_torch.models, zk_state_proofs_tpu_torch.witness_bridge\n"
+        "import zk_state_proofs_tpu_torch.parallel, zk_state_proofs_tpu_torch.__main__\n"
+        "import zk_state_proofs_tpu_torch.entry, zk_state_proofs_tpu_torch.witness.networks\n"
+        "import torch.distributed as dist\n"
         "assert not torch.cuda.is_initialized(), 'cuda initialised'\n"
+        "assert not dist.is_initialized(), 'a process group was initialised'\n"
         "from zk_state_proofs_tpu_torch.models import verify_storage_grouped\n"
         "from zk_state_proofs_tpu_torch.witness_bridge import storage_world\n"
         "w = storage_world(n_accounts=3, slots_per=2, slots_in_trie=8)\n"
@@ -273,6 +284,12 @@ def test_cuda_device_without_card_raises():
                                                   np.zeros(packed.nodes.shape[:2] + (32,),
                                                            np.uint8), *scalars[1:]),
              lambda: tmpt.verify_proofs_pool_stream(pn, pl, pi, *scalars)]
+    # the CLI and the mesh default to the card too
+    from zk_state_proofs_tpu_torch.__main__ import main
+    from zk_state_proofs_tpu_torch.parallel import make_mesh
+
+    calls += [lambda: main(["selftest", "--txs", "2"]), lambda: make_mesh(),
+              lambda: make_mesh(device="cuda")]
     for call in calls:
         with pytest.raises(RuntimeError):
             call()

@@ -62,22 +62,30 @@ class BatchVerifier:
                 only when every pool row's length fits its segment width.
     device:     "cuda" (kernels K1 and K2; the default, raises without a
                 card) or "cpu" (their plain versions).
-    mesh:       not supported by this port yet; raises if given.
+    mesh:       optional parallel.make_mesh mesh: every rank serves the
+                same requests, each batch sharded over the ranks (the pool
+                replicated, walked with the device hint pass) and the
+                results all-gathered; `device` must name the type of the
+                mesh's device, which serves. Requests are not depth-sorted
+                and the pinned schedules are not used, as in the JAX
+                service. batch_size must divide by the mesh size.
     """
 
     def __init__(self, bucket: BucketConfig, batch_size: int = 4096,
                  dedup: bool = True, pool_rows: int = 0, mesh=None,
                  depth_segments: tuple | None = None,
                  pool_segments: tuple | None = None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("the sharded (mesh) service is not ported yet")
+        self.device = resolve_device(device, mesh)
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} does not divide over "
+                             f"{mesh.size} ranks")
+        self.mesh = mesh
         self.bucket = bucket
         self.batch_size = int(batch_size)
         self.dedup = dedup
         self.pool_rows = int(pool_rows)
         self.depth_segments = depth_segments
         self.pool_segments = pool_segments
-        self.device = resolve_device(device)
         self.stats = ServiceStats()
         self._warm = False
 
@@ -135,7 +143,7 @@ class BatchVerifier:
                     f"from a batch packed into THIS service's bucket "
                     f"(PackedProofs.pool_block_segments on svc.pack(...))")
         self._verify_packed(packed)
-        if self.dedup:
+        if self.dedup and self.mesh is None:
             seg_opts = ({None} if self.depth_segments is None
                         else {None, self.depth_segments})
             ps_opts = ({None} if self.pool_segments is None
@@ -158,6 +166,13 @@ class BatchVerifier:
                        force_pool_segments=_UNSET):
         """Device tensors (status, values, value_lens) of a packed batch."""
         mvl = self.bucket.max_value_len
+        if self.mesh is not None:
+            from ..parallel.mesh import make_sharded_verifier
+
+            fn = make_sharded_verifier(self.mesh, max_value_len=mvl, pooled=self.dedup)
+            active = np.ones(packed.batch, dtype=np.int32)
+            pool = packed.pool() if self.dedup else ()
+            return fn(*(packed.astuple() + (active,) + pool))[:3]
         t = packed_to_tensors(packed, self.device, pool=self.dedup)
         batch = [t[k] for k in BATCH_FIELDS]
         if not self.dedup:
@@ -214,7 +229,7 @@ class BatchVerifier:
         t0 = time.time()
         n = len(entries)
         order = None
-        if self.depth_segments is not None and self.dedup:
+        if self.depth_segments is not None and self.dedup and self.mesh is None:
             # depth-sort for the pinned segment schedule; results are
             # restored to request order below (padding rows, appended by
             # pack(), carry zero nodes and land after every real entry)

@@ -24,8 +24,12 @@ read nothing back, so launches queue with no sync between batches (the
 sweep is a `counts_only` rate.
 
 Every entry point takes a `device`: "cuda" unless named (kernels K1 and
-K2; raises without a card), "cpu" for their plain versions. `mesh=` (the
-JAX package's sharded sweeps) needs the port of `parallel/` and raises.
+K2; raises without a card), "cpu" for their plain versions. `sweep`,
+`sweep_resident_epochs` and `sweep_entries` take a `mesh`
+(parallel.make_mesh): every rank runs the same call on the same host
+witness, verifies its share of each batch on its own device (the mesh's,
+whose type `device` must name), and the counts are summed over the ranks
+with one all_reduce at the end.
 """
 
 from __future__ import annotations
@@ -43,7 +47,6 @@ from ..ops.rlp import item_offsets
 from ..utils.device import resolve_device
 from ..utils.profiling import Meter
 from ..witness.pack import PackedProofs, pack_proofs
-from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS, packed_to_tensors
 
 _CODES = (mpt.FOUND, mpt.EXCLUDED, mpt.INVALID)
 
@@ -70,23 +73,26 @@ class SweepResult:
         return self.total / max(self.seconds, 1e-9)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded sweeps (mesh=) need the port of parallel/, not ported yet")
-
-
 class _Counts:
-    """FOUND / EXCLUDED / INVALID counts accumulated on the device."""
+    """FOUND / EXCLUDED / INVALID counts accumulated on the device, summed
+    over the ranks of `mesh` (where given) when read."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, mesh=None):
         self.acc = torch.zeros(3, dtype=torch.int64, device=dev)
         self.codes = torch.tensor(_CODES, dtype=torch.int32, device=dev)
+        self.mesh = mesh
 
-    def add(self, status) -> None:
-        self.acc.add_((status[:, None] == self.codes).sum(0))
+    def add(self, status, active=None) -> None:
+        """Count `status`; with `active` (a tensor, one entry a row), only
+        the rows where it is > 0 (padding rows stay out)."""
+        hit = status[:, None] == self.codes
+        if active is not None:
+            hit &= (active > 0)[:, None]
+        self.acc.add_(hit.sum(0))
 
     def read(self) -> np.ndarray:
+        if self.mesh is not None:
+            self.mesh.all_reduce_sum(self.acc)  # the one collective
         return self.acc.cpu().numpy()  # the one read back
 
 
@@ -124,23 +130,22 @@ def sweep(batches, mesh=None, max_value_len: int = 128, max_steps=None,
     copied to `device`. dedup=True hashes each batch's unique-node pool
     once (`verify_proofs_pooled`, hinted with the device hint pass, as the
     JAX function's pool carries no hints); dedup=False walks every node
-    row (`verify_proofs`). Returns the counts and the wall time."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
-    counts = _Counts(dev)
+    row (`verify_proofs`). With a mesh, each batch is padded to the mesh
+    size and sharded over the ranks (parallel.mesh.verify_local), the pool
+    replicated. Returns the counts and the wall time."""
+    from ..parallel.mesh import local_mesh, local_share, verify_local
+
+    dev = resolve_device(device, mesh)
+    mesh = mesh if mesh is not None else local_mesh(dev)
+    counts = _Counts(dev, mesh)
     total = nbatches = 0
     t0 = time.perf_counter()
     for packed in batches:
-        t = packed_to_tensors(packed, dev, pool=dedup, hints=False)
-        batch = [t[k] for k in BATCH_FIELDS]
-        if dedup:
-            status, _, _ = mpt.verify_proofs_pooled(
-                *batch, *(t[k] for k in POOL_FIELDS), max_value_len=max_value_len,
-                max_steps=max_steps)
-        else:
-            status, _, _ = mpt.verify_proofs(*batch, max_value_len=max_value_len,
-                                             max_steps=max_steps)
-        counts.add(status)
+        pool = packed.pool() if dedup else ()
+        share, active = local_share(mesh, packed.astuple() + pool[2:])
+        status, _, _ = verify_local(mesh, share[:6], pool[:2] + share[6:],
+                                    max_value_len, max_steps)
+        counts.add(status, torch.from_numpy(active).to(dev))
         total += packed.batch
         nbatches += 1
     totals = counts.read()
@@ -293,6 +298,14 @@ def sweep_resident_epochs(global_packed: PackedProofs, epochs: int, batch: int,
     `batch`-row windows (epoch_windows) of the materialized tables: no row
     gathers, each batch a view of the tables walked in place.
 
+    With a mesh (n ranks), every rank builds the tables of its own A/n
+    rows only (the pool is hashed whole on every rank) and sweeps them in
+    windows of batch/n rows (epoch_windows per shard, the tail clamped
+    per shard); the counts are summed over the ranks once, at the end.
+    Requires A % n == 0 and batch % n == 0. Window coverage per epoch is
+    identical to one rank's (each row verified once; tail overlap is per
+    shard), and `total` counts every window row of every rank.
+
     Every epoch is distinct work: before a window is walked, byte N - 1 of
     each of its node rows is set to the epoch counter (salt + e) & 0xFF,
     as the JAX function sets it in its copy of the window. The port writes
@@ -302,21 +315,27 @@ def sweep_resident_epochs(global_packed: PackedProofs, epochs: int, batch: int,
     reads byte N - 1 of a node shorter than N; a node exactly N bytes long
     is walked with its last byte replaced, in both packages alike (where
     that breaks its hints, the walk latches and re-runs in `exact`)."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
-    if batch > global_packed.batch:
-        raise ValueError(f"batch {batch} exceeds global rows {global_packed.batch}")
+    from ..parallel.mesh import local_mesh
+
+    dev = resolve_device(device, mesh)
+    mesh = mesh if mesh is not None else local_mesh(dev)
+    a, n = global_packed.batch, mesh.size
+    if batch > a:
+        raise ValueError(f"batch {batch} exceeds global rows {a}")
+    if a % n or batch % n:
+        raise ValueError(f"rows {a} and batch {batch} must divide the mesh ({n})")
     tp = time.perf_counter()
-    t = epoch_tables(global_packed, dev)
+    t = epoch_tables(global_packed, dev, rows=mesh.shard(a))
     _sync(dev)
     pack_s = time.perf_counter() - tp
-    starts = [int(s) for s in epoch_windows(global_packed.batch, batch)]
-    counts = _Counts(dev)
+    b_local = batch // n
+    starts = [int(s) for s in epoch_windows(a // n, b_local)]
+    counts = _Counts(dev, mesh)
     t0 = time.perf_counter()
     with _sync_check(forbid_sync, dev):
         for e in range(epochs):
             for s0 in starts:
-                counts.add(epoch_batch(t, s0, batch, (salt + e) & 0xFF, max_value_len,
+                counts.add(epoch_batch(t, s0, b_local, (salt + e) & 0xFF, max_value_len,
                                        max_steps, dev)[0])
     dispatch_s = time.perf_counter() - t0
     totals = counts.read()
@@ -326,11 +345,16 @@ def sweep_resident_epochs(global_packed: PackedProofs, epochs: int, batch: int,
                    batches=epochs * len(starts))
 
 
-def epoch_tables(global_packed: PackedProofs, dev) -> dict:
+def epoch_tables(global_packed: PackedProofs, dev, rows: slice | None = None) -> dict:
     """The epoch sweep's tables on `dev`: the witness uploaded, its pool
     hashed, the per-proof tables expanded (nodes u8 [A, D, N], lens i32
-    [A, D], digests and hints u8 [A, D, 68]) and the per-proof scalars."""
+    [A, D], digests and hints u8 [A, D, 68]) and the per-proof scalars;
+    with `rows`, the tables and scalars of those witness rows only (a
+    rank's shard), against the whole pool."""
     r = _upload(global_packed, dev)
+    if rows is not None:
+        for k in ("idx", "num", "roots", "knib", "klen"):
+            r[k] = r[k][rows]
     a, dd = r["idx"].shape
     nodes2, lens, dh2 = _expand_tables(r)
     return {"nodes": nodes2.view(a, dd, -1), "lens": lens, "dh": dh2.view(a, dd, 68),
@@ -367,15 +391,21 @@ def sweep_entries(entry_batches, max_nodes: int, node_len: int,
     (`verify_proofs_pool_stream`: the node tables are gathered on the
     card); pass pool_rows (a fixed pool-row bucket) to keep one pool
     shape. dedup=False ships the [B, D, N] tables (`verify_proofs`).
+    With a mesh, every rank packs the same batch and ships its share of
+    the proofs (the batch padded to the mesh size; the pool replicated),
+    and the counts of the active rows are summed over the ranks at the end.
 
     pack_seconds: the worker's packing time (overlapped with the card);
     dispatch_seconds: the main thread's time queueing batches, waits for
     the worker included; drain_seconds: the final read of the counts."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    from ..parallel.mesh import local_mesh, local_share
+
+    dev = resolve_device(device, mesh)
+    mesh = mesh if mesh is not None else local_mesh(dev)
     pack_time = [0.0]
     fields = ((np.uint8, np.int32, np.int32, np.int32, np.uint8, np.uint8, np.int32)
               if dedup else (np.uint8, np.int32, np.int32, np.uint8, np.uint8, np.int32))
+    fields += (np.int32,)  # the active mask
 
     def pack_one(entries):
         t0 = time.perf_counter()
@@ -383,6 +413,9 @@ def sweep_entries(entry_batches, max_nodes: int, node_len: int,
                              key_nibbles=key_nibbles)
         arrays = ((*packed.pool(min_rows=pool_rows), packed.num_nodes, packed.roots,
                    packed.key_nibbles, packed.key_lens) if dedup else packed.astuple())
+        lead = 2 if dedup else 0  # this rank's proofs: pool rows stay whole
+        share, active = local_share(mesh, arrays[lead:])
+        arrays = arrays[:lead] + share + (active,)
         host = [torch.from_numpy(np.ascontiguousarray(x, dtype=t))
                 for x, t in zip(arrays, fields)]
         if dev.type == "cuda":
@@ -394,7 +427,7 @@ def sweep_entries(entry_batches, max_nodes: int, node_len: int,
     kw = dict(max_value_len=max_value_len, max_steps=max_steps)
     if dedup:
         kw["device"] = dev
-    counts = _Counts(dev)
+    counts = _Counts(dev, mesh)
     total = nbatches = 0
     dispatch_s = 0.0
     t0 = time.perf_counter()
@@ -413,8 +446,7 @@ def sweep_entries(entry_batches, max_nodes: int, node_len: int,
             if entries is not None:
                 inflight.append(pool_exec.submit(pack_one, entries))
             args = [h.to(dev, non_blocking=True) for h in host]
-            status, _, _ = fn(*args, **kw)
-            counts.add(status)
+            counts.add(fn(*args[:-1], **kw)[0], args[-1])
             dispatch_s += time.perf_counter() - td
             total += b
             nbatches += 1

@@ -25,7 +25,14 @@ def compute_root(plan, device="cuda"):
     """Run the reduction of `plan` on `device` ("cuda" unless named; a
     CUDA device without a card raises). Returns (root u8 [32], every
     node's digest u8 [total_nodes, 32]), both numpy."""
-    dev = resolve_device(device)
+    return reduce_levels(plan, resolve_device(device), keccak256_cuda)
+
+
+def reduce_levels(plan, dev, hash_level):
+    """The level loop of compute_root on `dev`, each level's filled
+    templates u8 [n, W] and lengths i32 [n] hashed by
+    hash_level(templates, lengths) -> u8 [n, 32] (parallel.dist_trie
+    passes a sharded one). Returns (root, digests), numpy."""
     if plan.root_is_empty:
         return np.frombuffer(EMPTY_ROOT, dtype=np.uint8).copy(), np.zeros((0, 32), np.uint8)
     digests = torch.zeros((plan.total_nodes, 32), dtype=torch.uint8, device=dev)
@@ -41,7 +48,7 @@ def compute_root(plan, device="cuda"):
             at = (torch.from_numpy(lvl.hole_off.astype(np.int64)).to(dev)[:, :, None]
                   + cols).expand(child.shape)
             templ.index_put_((rows, at), child.to(torch.uint8), accumulate=True)
-        dg = keccak256_cuda(templ, torch.from_numpy(lvl.lengths.astype(np.int32)).to(dev))
+        dg = hash_level(templ, torch.from_numpy(lvl.lengths.astype(np.int32)).to(dev))
         digests[torch.from_numpy(lvl.node_ids.astype(np.int64)).to(dev)] = dg
     every = digests.cpu().numpy()
     return every[plan.root_id].copy(), every

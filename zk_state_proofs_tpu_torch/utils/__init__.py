@@ -1,6 +1,18 @@
-"""Bucket geometry and timing helpers."""
+"""Config, error taxonomy, timing and profiling."""
 
-from .config import BucketConfig
-from .profiling import Meter, cuda_timer
+from .config import BucketConfig, Config
+from .errors import MissingKeyError, PackingError, VerificationError, WitnessError
+from .profiling import Meter, cuda_timer, cuda_trace, timed
 
-__all__ = ["BucketConfig", "Meter", "cuda_timer"]
+__all__ = [
+    "BucketConfig",
+    "Config",
+    "MissingKeyError",
+    "PackingError",
+    "VerificationError",
+    "WitnessError",
+    "Meter",
+    "cuda_timer",
+    "cuda_trace",
+    "timed",
+]

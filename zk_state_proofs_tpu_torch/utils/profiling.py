@@ -1,8 +1,12 @@
-"""Throughput meter, CUDA-event timers and a torch.profiler summary."""
+"""Throughput meter, a timing context, CUDA-event timers, a torch.profiler
+summary and a Chrome-trace export of the card's work."""
 
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
@@ -33,6 +37,38 @@ class Meter:
             "steps": self.steps,
             "seconds": self.seconds,
         }
+
+
+@contextlib.contextmanager
+def timed(result_holder: dict, key: str = "seconds", sync=None):
+    """Time a block into result_holder[key]. `sync` (a torch.device or a
+    tensor) names the device to synchronise before the clock stops, so
+    its queued work is included; a CPU device needs none."""
+    t0 = time.time()
+    yield
+    if sync is not None:
+        dev = sync if isinstance(sync, torch.device) else sync.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    result_holder[key] = time.time() - t0
+
+
+@contextlib.contextmanager
+def cuda_trace(logdir: str):
+    """A torch.profiler trace of the block, the host's CPU activity and the
+    card's kernels and copies, written on exit as a Chrome trace,
+    `logdir/trace.json` (view it in chrome://tracing or Perfetto). The
+    port's counterpart of `zk_state_proofs_tpu.utils.profiling.tpu_trace`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / "trace.json"))
 
 
 def cuda_timer(fn, iters: int, warmup: int = 2) -> float:

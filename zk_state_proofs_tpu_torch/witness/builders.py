@@ -1,9 +1,11 @@
-"""Witness builders for the block tries: transactions and receipts.
+"""Witness builders — the four proof-input flavors.
 
-The port's own copy of the block half of `zk_state_proofs_tpu.witness.
-builders` (the tests hold the two equal), with the transaction shape check
-of `zk_state_proofs_tpu.witness.models.validate_transaction` that it calls.
-Equivalents of the reference's trie-utils builders:
+The port's own copy of `zk_state_proofs_tpu.witness.builders` (the tests
+hold the two equal). Equivalents of the reference's trie-utils builders:
+  - account: from an eth_getProof response; key = keccak(address)
+    (reference: trie-utils/src/proofs/account.rs:24-74, key at :54)
+  - storage: account proof + N storage proofs with RAW slot keys
+    (reference: trie-utils/src/proofs/storage.rs:24-121)
   - transaction: rebuild the whole tx trie locally from block data, insert
     each EIP-2718-encoded tx at path rlp(index), extract the proof, pair
     with the header's transactions_root
@@ -14,61 +16,13 @@ Equivalents of the reference's trie-utils builders:
 
 from __future__ import annotations
 
-from ..oracle import EthTrie, rlp
-from .encoding import (EIP1559, EIP2930, EIP4844, EIP7702, LEGACY, OP_DEPOSIT,
-                       _data, encode_receipt, encode_transaction, tx_type)
-from .types import MerkleProofInput
+from ..oracle import EthTrie, keccak256, rlp
+from .encoding import _data, encode_receipt, encode_transaction
+from .types import MerkleProofInput, StorageProofInput
 
 
 class WitnessError(ValueError):
     """Witness construction failed (e.g. rebuilt root != header root)."""
-
-
-# required signed-envelope fields per EIP-2718 type (the alloy TxEnvelope
-# variants the reference matches on, transaction.rs:47-62; deposit fields
-# per op-alloy TxDeposit, transaction.rs:93-97)
-_TX_REQUIRED = {
-    LEGACY: ["nonce", "gasPrice", "gas", "value", "v", "r", "s"],
-    EIP2930: ["chainId", "nonce", "gasPrice", "gas", "value", "r", "s"],
-    EIP1559: ["chainId", "nonce", "maxPriorityFeePerGas", "maxFeePerGas",
-              "gas", "value", "r", "s"],
-    EIP4844: ["chainId", "nonce", "maxPriorityFeePerGas", "maxFeePerGas",
-              "gas", "value", "maxFeePerBlobGas", "blobVersionedHashes",
-              "r", "s"],
-    EIP7702: ["chainId", "nonce", "maxPriorityFeePerGas", "maxFeePerGas",
-              "gas", "value", "authorizationList", "r", "s"],
-    OP_DEPOSIT: ["sourceHash", "from", "gas"],
-}
-
-
-def _require(obj: dict, names, where: str) -> None:
-    if not isinstance(obj, dict):
-        raise WitnessError(f"{where}: expected an object, got {type(obj).__name__}")
-    missing = [n for n in names if obj.get(n) is None]
-    if missing:
-        raise WitnessError(f"{where}: missing required fields {missing}")
-
-
-def validate_transaction(tx: dict) -> dict:
-    """Validate an RPC transaction dict against its envelope's required
-    fields; returns the dict unchanged. WitnessError on any malformed
-    shape (the reference gets this from serde's typed deserialization)."""
-    if not isinstance(tx, dict):
-        raise WitnessError(f"transaction must be an object, got {type(tx).__name__}")
-    try:
-        t = tx_type(tx)
-    except ValueError as e:
-        raise WitnessError(f"transaction has malformed type field: {tx.get('type')!r}") from e
-    required = _TX_REQUIRED.get(t)
-    if required is None:
-        raise WitnessError(f"unsupported transaction type {t:#x}")
-    _require(tx, required, f"transaction type {t:#x}")
-    if t != LEGACY and t != OP_DEPOSIT and tx.get("yParity") is None and tx.get("v") is None:
-        raise WitnessError(f"transaction type {t:#x}: missing yParity/v")
-    for al_field in ("accessList", "authorizationList", "blobVersionedHashes"):
-        if al_field in tx and tx[al_field] is not None and not isinstance(tx[al_field], list):
-            raise WitnessError(f"transaction field {al_field!r} must be a list")
-    return tx
 
 
 def build_transaction_trie(txs: list[dict]) -> EthTrie:
@@ -76,6 +30,8 @@ def build_transaction_trie(txs: list[dict]) -> EthTrie:
     (reference transaction.rs:44-64). Each tx is shape-validated first so
     a malformed RPC response raises WitnessError, not a KeyError inside
     the envelope encoder."""
+    from .models import validate_transaction
+
     trie = EthTrie()
     for i, tx in enumerate(txs):
         trie.insert(rlp.encode_int(i), encode_transaction(validate_transaction(tx)))
@@ -122,6 +78,46 @@ def get_receipt_proof_input(block: dict, receipts: list[dict], index: int) -> Me
     key = rlp.encode_int(index)
     return MerkleProofInput(proof=trie.get_proof(key), root_hash=root, key=key)
 
+
+def get_account_proof_input(proof_response: dict, state_root: bytes, address: str) -> MerkleProofInput:
+    """From an eth_getProof response: account witness with key =
+    keccak(address) (reference account.rs:42-55). The response is parsed
+    through the typed AccountProofResult model first, so a malformed
+    shape raises WitnessError at this boundary."""
+    from .models import AccountProofResult
+
+    parsed = AccountProofResult.from_rpc(proof_response)
+    return MerkleProofInput(
+        proof=parsed.account_proof,
+        root_hash=bytes(state_root),
+        key=keccak256(_data(address)),
+    )
+
+
+def get_storage_proof_input(
+    proof_response: dict, state_root: bytes, address: str, storage_keys: list
+) -> StorageProofInput:
+    """From an eth_getProof response with storage keys: the two-level
+    witness. Slot keys stay RAW (hashed at verify time), the account key is
+    pre-hashed (reference storage.rs:58-77). Typed-model parsing as in
+    get_account_proof_input."""
+    from .models import AccountProofResult
+
+    parsed = AccountProofResult.from_rpc(proof_response)
+    by_key = {sp.key: sp.proof for sp in parsed.storage_proof}
+    slots = [_data(k).rjust(32, b"\x00") for k in storage_keys]
+    missing = [s.hex() for s in slots if s not in by_key]
+    if missing:
+        raise WitnessError(f"storage proofs missing for slots: {missing}")
+    addr_keccak = keccak256(_data(address))
+    return StorageProofInput(
+        account_proof=parsed.account_proof,
+        storage_proofs=[by_key[s] for s in slots],
+        root_hash=bytes(state_root),
+        account_key=addr_keccak,
+        storage_keys=slots,
+        address_keccak=addr_keccak,
+    )
 
 def _all_inputs(trie: EthTrie, root: bytes, n: int) -> list:
     return [MerkleProofInput(proof=trie.get_proof(rlp.encode_int(i)), root_hash=root,

@@ -1,11 +1,11 @@
 """Recorded fixtures + synthetic block generator.
 
-The port's own copy of `zk_state_proofs_tpu.witness.fixtures` without its
-RPC recorders (they need the network); the tests hold the two equal.
-Recorded blocks load from JSON files, and a deterministic synthetic-block
-generator produces realistic multi-envelope blocks (all five EIP-2718 types
-+ logs) whose header roots are computed with the oracle trie builder, so
-the whole pipeline tests offline and bit-exactly.
+The port's own copy of `zk_state_proofs_tpu.witness.fixtures` (the tests
+hold the two equal). Blocks and proof responses are recorded through an
+RPC client into JSON files and load back offline, and a deterministic
+synthetic-block generator produces realistic multi-envelope blocks (all
+five EIP-2718 types + logs) whose header roots are computed with the
+oracle trie builder, so the whole pipeline tests offline and bit-exactly.
 """
 
 from __future__ import annotations
@@ -22,8 +22,33 @@ ERC20_TRANSFER_TOPIC = (
 )
 
 
+def save_fixture(path, obj: dict) -> None:
+    Path(path).write_text(json.dumps(obj, indent=1, sort_keys=True))
+
+
 def load_fixture(path) -> dict:
     return json.loads(Path(path).read_text())
+
+
+def record_block_fixture(client, block_hash: str, path=None) -> dict:
+    """Fetch a block + its receipts through `client` and (optionally) save:
+    the recorded form feeds the same builders as live RPC."""
+    block = client.get_block_by_hash(block_hash, full_txs=True)
+    receipts = client.get_block_receipts(block_hash)
+    fixture = {"block": block, "receipts": receipts}
+    if path is not None:
+        save_fixture(path, fixture)
+    return fixture
+
+
+def record_proof_fixture(client, address: str, storage_keys: list, tag="latest", path=None) -> dict:
+    block = client.get_block_by_number(tag, full_txs=False)
+    proof = client.get_proof(address, storage_keys, tag)
+    fixture = {"block": block, "proof": proof, "address": address,
+               "storageKeys": storage_keys}
+    if path is not None:
+        save_fixture(path, fixture)
+    return fixture
 
 
 # ---------------------------------------------------------------------------
