@@ -36,18 +36,27 @@ Phases, each printing a line:
      source in parallel;
   3. K1 (keccak) against its plain version on the card, and the oracle;
   4. K2 (MPT walk, modes hinted and exact) against its plain version on the
-     card: the headline batch, an adversarial batch, corrupted hints;
+     card: the headline batch, an adversarial batch, corrupted hints; the
+     `exact` re-run's flag folded into the first walk against guard_plain
+     of its words where no proof latched, one did and every one did (the
+     three first walks queued before any guarded launch) and on the
+     adversarial batch, the guarded launch walking exactly where one
+     latched, every output equal to the plain route;
   5. account path: three requests through BatchVerifier; every headline
      proof FOUND with the oracle's leaf; results equal the plain path on the
      card; K1, hinted and exact launched by the path;
   6. timings with CUDA events, kernel path against plain path (the pooled
      verify, K1, and K2 in every hinted mode and exact, on the headline),
-     and a torch.profiler breakdown of the headline pooled verify;
+     and a torch.profiler breakdown of the headline pooled verify; its
+     launches a call (the guard kernel 0) and the folded flag on each of
+     its segments;
   7. K2 in mode bounded against its plain version: the full-width slot
      batch, crafted over-bound nodes (latch, then the exact re-run), a trie
      with inline children (served without a latch), the adversarial batch;
-  8. K3 (keccak from raw words) against its plain version and K1: edge
-     lengths and the headline pool, with an oracle sample;
+  8. K3 (keccak from raw words, a warp a message) against its plain
+     version, the one-thread K3 it replaced and K1: edge lengths at widths
+     576 and 573 and the headline pool, with an oracle sample; its time
+     beside K1's and the one-thread K3's;
   9. storage path: every account and slot FOUND with the oracle's values;
      equal to the plain path on the card and to verify_storage_batch (both
      dedup forms) on a 1:1 subset; a tampered account proof turns exactly
@@ -72,16 +81,19 @@ Phases, each printing a line:
      path), a device-time A/B of the five hinted modes on the headline and
      transaction-geometry batches, K1 on the transaction-geometry pool, and
      the share of K2's value copy at that geometry;
- 14. A/B of K1 and K2 against the one-thread kernels that came before them
-     (a thread per message, a thread per proof), on one card, in turns
+ 14. A/B of K1, K2 and K3 against the one-thread kernels that came before
+     them (a thread per message, a thread per proof), on one card, in turns
      (old, new, new, old), device time from queued CUDA events: K2 in all
      seven modes on the headline segments, bounded and exact on the slot
      batch, hinted at transaction geometry with and without the value copy,
-     K1 on the two headline pool segments and the transaction pool; each
-     batch's results from the two kernels equal bit for bit. Printed as
-     lines and as one JSON object {"ab": [...]}; before them, K2's dynamic
-     shared memory and staging on the headline, slot and transaction
-     batches;
+     K1 on the two headline pool segments and the transaction pool, K3 on
+     the headline pool; K2 hinted on the headline with and without the
+     folded flag's store; the re-run route with the flag folded in against
+     the guard kernel's route (the guard kernel plus the guarded exact), on
+     the headline and on corrupted hints; each batch's results from the two
+     sides equal bit for bit. Printed as lines and as one JSON object
+     {"ab": [...]}; before them, K2's dynamic shared memory and staging on
+     the headline, slot and transaction batches;
  15. sweeps at config 5's size: the 65,536-account world (every node
      shorter than N, so the epoch counter lands on padding), the epoch
      sweep (16 epochs, 1,048,576 proofs, after a warm-up with another salt:
@@ -94,8 +106,10 @@ Phases, each printing a line:
      route on the card, the guarded `exact` walk run; the batch loops of
      the epoch, fused and entries sweeps under
      torch.cuda.set_sync_debug_mode("error"); proofs/s per form, pack /
-     dispatch / drain seconds, launches per batch and the device-busy share
-     of an epoch batch; the guard kernel against its plain version;
+     dispatch / drain seconds, launches per batch (the guard kernel 0) and
+     the device-busy share of an epoch batch; the folded flag on an epoch
+     window of the world and of the mixed witness; the baseline guard
+     kernel against its plain version;
  16. roots and circuits: compute_root on the receipt trie of
      synthetic_block(256, seed=5) and the transaction trie of the 256-tx
      block equals their receiptsRoot and transactionsRoot (and the plain
@@ -126,8 +140,11 @@ Phases, each printing a line:
 
 K1 is a warp per message and K2 a warp per proof over a shared-memory slab
 (csrc/keccak.cu, csrc/mpt_walk.cu); K2's `exact` re-run is decided on the
-card by a guard kernel (csrc/mpt_walk.cu); the build phase prints ptxas's
-registers and spills (and static shared memory) for each kernel. Each
+card with no launch of its own: the first walk stores its tag into a slot
+of a device flag ring where a proof latched, and the guarded `exact`
+launch walks only where the slot holds the tag; no path launches the
+guard kernel that came before (csrc/mpt_walk.cu). The build phase prints
+ptxas's registers and spills (and static shared memory) for each kernel. Each
 phase prints its seconds, and the run its total. Any failed check exits
 non-zero. The next-to-last line is a JSON object of the kernels; the last
 line is {"ok": true, "device": {...}}. Uses no JAX and nothing of the JAX
@@ -400,11 +417,27 @@ def main() -> None:
     check(mpt_cuda.exact_walked(dev) == walked + 1,
           "corrupted hints did not route to the exact kernel")
     check(max_err(res, honest) == 0, "exact re-run differs from the honest-hint run")
+    # the re-run flag folded into the first walk: no proof latched, one did,
+    # every one did (the three first walks queued before any guarded
+    # launch), and the adversarial batch (its inline proofs latch)
+    one = h.clone()
+    one[5] = corrupt[5]  # that proof alone latches
+    fold_err, latched = fold_checks([*a, 128, max_steps], [
+        ("honest hints", h), ("one proof's hints corrupted", one), ("corrupted hints", corrupt)])
+    check(latched == [0, 1, a[0].shape[0]], f"latched proofs {latched}: 0, 1 and all expected")
+    e, adv_latched = fold_checks([*adv_args, 128, d_ + 6], [("the adversarial batch", ahints)])
+    fold_err = max(fold_err, e)
     log(f"[4 K2] walk kernel == plain in modes hinted and exact (six words "
         f"and values) on {len(segs)} headline segments, an adversarial batch "
         f"of {b_} proofs and corrupted hints; corrupted hints latched ovf on "
         f"{int((ovf != 0).sum())}/{ovf.numel()} proofs and re-ran in exact "
         f"with the honest results; max abs err 0")
+    log(f"[4 fold] the re-run flag folded into K2's first walk == guard_plain of its words "
+        f"on headline segment 0 with {latched} proofs latched (three first walks queued "
+        f"before any guarded launch) and the adversarial batch ({adv_latched[0]} latched); "
+        f"the guarded exact launch walked exactly where a proof latched, every output "
+        f"(status, value, length, reason) == the plain route; no guard kernel launched; "
+        f"max abs err {fold_err}")
 
     stamp("witness and phases 3-4 (K1, K2)")
 
@@ -430,8 +463,9 @@ def main() -> None:
     torch.cuda.synchronize()
     serve_s = time.time() - t0
     launches = read_counts()
-    for name in ("keccak256", "hinted", "guard", "exact", "exact_walked"):
+    for name in ("keccak256", "hinted", "exact", "exact_walked"):
         check(launches[name] > 0, f"the main path launched the {name} kernel no time")
+    check(launches["guard"] == 0, "the main path launched the guard kernel")
     head = results[0]
     check(head.status.shape == (N_ACCOUNTS,) and head.values.shape == (N_ACCOUNTS, 128),
           "unexpected result shapes")
@@ -504,6 +538,19 @@ def main() -> None:
         f"host {prof['wall_ms']:.4f} ms/call, device busy {prof['busy_ms']:.4f} ms/call "
         f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), {prof['launches']:.0f} device "
         f"launches/call; top by device time: {top} on {card}")
+
+    for k, (a, h) in enumerate(head_segs):
+        fold_err = max(fold_err, fold_checks([*a, 128, max_steps],
+                                             [(f"headline segment {k}", h)])[0])
+    before = {**keccak_cuda.LAUNCHES, **mpt_cuda.LAUNCHES}
+    mpt.verify_proofs_pooled(*batch, *pool, ht["pool_hints"], max_value_len=128,
+                             depth_segments=segs, pool_segments=psegs)
+    per_call = {k: v - before[k] for k, v in {**keccak_cuda.LAUNCHES, **mpt_cuda.LAUNCHES}.items()
+                if v != before[k]}
+    check("guard" not in per_call, "the headline pooled verify launched the guard kernel")
+    log(f"[6 launches] a headline pooled verify: wrapper launches {per_call}, the guard "
+        f"kernel 0; {prof['launches']:.0f} device launches a call (torch.profiler, above); "
+        f"the folded re-run flag == guard_plain on each of its {len(segs)} segments")
 
     k1_ms = cuda_timer(lambda i: mpt._hash_pool_rows(pn, pl, psegs), TIMED_ITERS)
     k1_plain_ms = cuda_timer(
@@ -599,17 +646,30 @@ def main() -> None:
         "mpt_walk_bounded", src + "mpt_walk.cu",
         "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, "bounded",
         bnd["err"], sto["bounded_ms"], sto["bounded_plain_ms"], sto["bounded_bound"]))
-    # the guard of the `exact` re-run: the predicate of the TPU path's
-    # jax.lax.cond, which has no Pallas kernel
+    # the guard of the `exact` re-run (the predicate of the TPU path's
+    # jax.lax.cond, which has no Pallas kernel), folded into K2's first
+    # walk: no launch of its own (the baseline guard kernel's count stays 0
+    # on every path); its time is the flag store's share of K2 `hinted` on
+    # the headline (phase 14, with against without, in turns); its error
+    # the folded flag's and the baseline guard kernel's against guard_plain
     g = swp["guard"]
+    store = next(r for r in ab if r["kernel"] == "K2 flag store")
+    store_ms = (None if None in (store["new_us"], store["old_us"])
+                else (store["new_us"] - store["old_us"]) / 1e3)
     kernels.append(kernel_row(
         "mpt_walk_guard", src + "mpt_walk.cu", "zk_state_proofs_tpu/ops/mpt_pallas.py:981",
-        by_path, "guard", g["err"], g["ms"], g["plain_ms"], g["bound"]))
-    kernels[-1]["library_ms"] = g["library_ms"]
+        by_path, "guard", max(g["err"], fold_err, swp["err"]["fold"]), store_ms,
+        g["plain_ms"], g["bound"]))
+    kernels[-1].update(library_ms=g["library_ms"], design="folded into K2's first walk",
+                       hinted_us={"without_store": store["old_us"], "with_store": store["new_us"]},
+                       guard_kernel={"ms": g["ms"], "device_us": g["device_us"]})
     # K3 is on no main path (as in the JAX package): 0 launches there
     kernels.append(kernel_row(
         "keccak256_raw", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:211",
         by_path, "keccak256_raw", k3["err"], k3["ms"], k3["plain_ms"], bound["k3"]))
+    k3_ab = next(r for r in ab if r["kernel"] == "K3")
+    kernels[-1]["device_us"] = {"one_thread": k3_ab["old_us"], "warp": k3_ab["new_us"],
+                                "k1": k3["device_us"]["K1"]}
     log(json.dumps({"ab": ab}))
     log(f"[bound] the least time for each kernel's work: bytes over "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, 32-bit integer operations over "
@@ -685,6 +745,7 @@ def phase_sweeps(card, dev):
                                           **kw)
     per_batch = {k: (mpt_cuda.LAUNCHES[k] - before[k]) / res["epochs"].batches
                  for k in before if mpt_cuda.LAUNCHES[k] != before[k]}
+    check("guard" not in per_batch, "an epoch batch launched the guard kernel")
     sweep_resident(gp, w.index_batches(16, SWEEP_BATCH, rng), fused=True, **kw)
     res["fused"] = sweep_resident(gp, w.index_batches(SWEEP_BATCHES, SWEEP_BATCH, rng),
                                   fused=True, forbid_sync=True, **kw)
@@ -744,8 +805,9 @@ def phase_sweeps(card, dev):
               f"plain route {want}")
     check(walked > 0, "the mixed witness did not walk the guarded exact kernel")
     launches = read_counts()
-    for name in ("keccak256", "hinted", "bounded", "guard", "exact", "exact_walked"):
+    for name in ("keccak256", "hinted", "bounded", "exact", "exact_walked"):
         check(launches[name] > 0, f"the sweeps launched the {name} kernel no time")
+    check(launches["guard"] == 0, "the sweeps launched the guard kernel")
     log(f"[15 sweeps] the epoch, fused and entries batch loops ran under "
         f"torch.cuda.set_sync_debug_mode('error'); every honest proof FOUND; no honest batch "
         f"walked exact; the mixed witness ({count(status)} FOUND / EXCLUDED / INVALID on the "
@@ -770,6 +832,8 @@ def phase_sweeps(card, dev):
         f"({DEVICE_TIMING}): device busy {busy} of the sweep's time; wrapper launches a batch "
         f"{per_batch}; torch.profiler over 10 batches: {prof['launches']:.0f} device launches "
         f"a batch, busy {prof['busy_ms']:.4f} ms, top {top} on {card}")
+    log(f"[15 launches] an epoch batch: wrapper launches {per_batch} (the guard kernel 0), "
+        f"{prof['launches']:.0f} device launches recorded by torch.profiler")
     err = sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev)
     del tables
 
@@ -784,10 +848,11 @@ def sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev):
     the device pass's hints; no flag latches, the guarded `exact` launch
     returns at once) and the whole mixed witness (its flags latch, so the
     guarded `exact` launch walks), each proof's status, value, value length
-    and INVALID reason; the mixed witness through verify_proofs_indexed
-    (pack-time hints) and verify_proofs_pool_stream (a fresh pool, the
-    device pass's hints) against the plain route. Returns the largest
-    errors of K1 and K2 (0: identical)."""
+    and INVALID reason, and the folded re-run flag of each (fold_checks);
+    the mixed witness through verify_proofs_indexed (pack-time hints) and
+    verify_proofs_pool_stream (a fresh pool, the device pass's hints)
+    against the plain route. Returns the largest errors of K1, K2 and the
+    folded flag (0: identical)."""
     pool_nodes, pool_lens, _ = gp.pool()
     pn = torch.from_numpy(pool_nodes).to(dev)
     pl = torch.from_numpy(pool_lens.astype(np.int32)).to(dev)
@@ -797,7 +862,7 @@ def sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev):
     del pn, pl
     mtables = epoch_tables(mp, dev)
     last = int(epoch_windows(gp.batch, SWEEP_BATCH)[-1])
-    errs, shapes = {}, {}
+    errs, shapes, fold = {}, {}, {}
     for name, tb, s0, latches in (("world window", tables, last, False),
                                   ("mixed witness", mtables, 0, True)):
         walked = mpt_cuda.exact_walked(dev)
@@ -810,6 +875,8 @@ def sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev):
         reasons = mpt_cuda.walk_batch_cuda(*args, hints=dh[..., 32:], with_reasons=True)[3]
         want = plain_walk(batch, dh[..., :32], dh[..., 32:], 128, steps, with_reasons=True)
         errs[name] = max_err([*got, reasons], want)
+        fold[name], n = fold_checks(args, [(f"the {name}", dh[..., 32:])])
+        check((n[0] > 0) == latches, f"the {name}: {n[0]} proofs latched the folded flag")
         shapes[name] = tuple(batch[0].shape)
         check(errs[name] == 0, f"epoch_batch on the {name} differs from the plain walk "
                                f"(max abs err {errs[name]})")
@@ -826,19 +893,23 @@ def sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev):
         *pool, *scalars, max_steps=steps, device=dev), plain_mixed)
     k2 = max(errs.values())
     check(k2 == 0, f"the sweep's entry points differ from the plain route: {errs}")
+    check(max(fold.values()) == 0, f"the folded re-run flag on the sweep's batches: {fold}")
     log(f"[15 check] proof by proof, bit for bit: K1 == plain keccak on the sweep pool "
         f"{pool_nodes.shape}; epoch_batch == the plain walk (status, value, value length, "
         f"reason) on the world's last window {shapes['world window']} (exact not walked) and "
         f"the mixed witness {shapes['mixed witness']} (the guarded exact walked); "
         f"verify_proofs_indexed (pack-time hints) and verify_proofs_pool_stream on the "
-        f"mixed witness == the plain route; max abs err {errs}")
-    return {"k1": k1, "k2": k2}
+        f"mixed witness == the plain route; max abs err {errs}; the re-run flag folded into "
+        f"the first walk == guard_plain on both epoch windows, the guarded exact launch "
+        f"walked where it latched (max abs err {fold})")
+    return {"k1": k1, "k2": k2, "fold": max(fold.values())}
 
 
 def guard_check(card, dev):
-    """The guard kernel against its plain version on walk outputs of the
-    sweep's batch size (no flag set, one set, every one set); its times,
-    the plain version's and torch.any's, on the honest output."""
+    """The baseline guard kernel (no path launches it: the flag is folded
+    into the first walk) against guard_plain on walk outputs of the sweep's
+    batch size (no flag set, one set, every one set); its time, the plain
+    version's and torch.any's, on the honest output."""
     gen = torch.Generator().manual_seed(3)
     base = torch.randint(0, 1 << 20, (SWEEP_BATCH, 6), generator=gen, dtype=torch.int32)
     base[:, 4] = 0
@@ -849,19 +920,19 @@ def guard_check(card, dev):
     for o in outs:
         o = o.to(dev)
         err = max(err, max_err([mpt_cuda.walk_guard(o)], [mpt_cuda.guard_plain(o)]))
-    check(err == 0, f"the guard kernel differs from its plain version (max abs err {err})")
+    check(err == 0, f"the baseline guard kernel differs from guard_plain (max abs err {err})")
     honest = outs[0].to(dev)
     ms = cuda_timer(lambda i: mpt_cuda.walk_guard(honest), TIMED_ITERS)
     plain_ms = cuda_timer(lambda i: mpt_cuda.guard_plain(honest), TIMED_ITERS)
     library_ms = cuda_timer(lambda i: honest[:, 4].any(), TIMED_ITERS)
     dev_us = device_us(lambda i: mpt_cuda.walk_guard(honest))
     bound = least_time(4 * SWEEP_BATCH + 4, SWEEP_BATCH)
-    log(f"[15 guard] the guard kernel == plain on {SWEEP_BATCH}-proof walk outputs with no, "
-        f"one and every flag set; one launch {ms:.4f} ms (device {us_text(dev_us)}), plain "
+    log(f"[15 guard] the baseline guard kernel == plain on {SWEEP_BATCH}-proof walk outputs "
+        f"with no, one and every flag set; one launch {ms:.4f} ms (device {us_text(dev_us)}), plain "
         f"{plain_ms:.4f} ms, torch.any {library_ms:.4f} ms, bound {bound[0]:.6f} ms "
         f"({bound[1]}) on {card}")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound": bound}
+    return {"err": err, "ms": ms, "device_us": dev_us, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound": bound}
 
 
 def storage_circuit_input(w, a):
@@ -916,6 +987,7 @@ def phase_roots_circuits(tx_block, card, dev):
     launches = read_counts()
     for name in ("keccak256", "hinted", "bounded"):
         check(launches[name] > 0, f"roots and circuits launched the {name} kernel no time")
+    check(launches["guard"] == 0, "roots and circuits launched the guard kernel")
 
     check("0x" + bytes(r_root).hex() == fx["block"]["receiptsRoot"],
           "compute_root of the receipt trie differs from the block's receiptsRoot")
@@ -1103,8 +1175,9 @@ def phase_parallel(entries, swp, card, dev):
         same_outputs(out["service"][i], (r.status, r.values, r.value_lens),
                      f"BatchVerifier(mesh=) request {i} against BatchVerifier")
     check(bool((out["service"][0][0] == mpt.FOUND).all()), "a headline request proof not FOUND")
-    for name in ("keccak256", "hinted", "bounded", "guard", "exact"):
+    for name in ("keccak256", "hinted", "bounded", "exact"):
         check(one["launches"][name] > 0, f"the sharded paths launched the {name} kernel no time")
+    check(one["launches"]["guard"] == 0, "the sharded paths launched the guard kernel")
     log(f"[17 parallel] world size 1 over {backend} ({one['mesh']}): verify_proofs_sharded "
         f"on the {N_ACCOUNTS}-proof headline, verify_storage_grouped_sharded on "
         f"storage_world{STORAGE_WORLD}, compute_root_sharded on the receipt trie of "
@@ -1122,9 +1195,10 @@ def phase_parallel(entries, swp, card, dev):
     ranks_s = time.time() - t0
     for r in ranks:
         same_outputs(r["out"], out, f"rank {r['rank']} of {PAR_RANKS} against world size 1")
-        for name in ("keccak256", "hinted", "bounded", "guard", "exact"):
+        for name in ("keccak256", "hinted", "bounded", "exact"):
             check(r["launches"][name] > 0,
                   f"rank {r['rank']} launched the {name} kernel no time")
+        check(r["launches"]["guard"] == 0, f"rank {r['rank']} launched the guard kernel")
     built = ", ".join(f"{r['witness_seconds']:.1f}" for r in ranks)
     log(f"[17 parallel] {PAR_RANKS} ranks over gloo on one card ({ranks[0]['mesh']}, "
         f"{ranks[1]['mesh']}): every output equal to world size 1's bit for bit (the same "
@@ -1246,8 +1320,9 @@ def phase_cli(repo, card):
           and outs[4]["account_found"] and outs[4]["slots"][0]["value"] != "0x"
           and outs[5]["error"] == "header-anchor mismatch",
           f"unexpected CLI output: {outs}")
-    for name in ("keccak256", "hinted", "bounded", "guard", "exact"):
+    for name in ("keccak256", "hinted", "bounded", "exact"):
         check(launches[name] > 0, f"the CLI launched the {name} kernel no time")
+    check(launches["guard"] == 0, "the CLI launched the guard kernel")
     check(traced == on_card[1] and events, f"cuda_trace: {traced}, {len(events)} events")
     kernel_events = sum(e.get("cat") == "kernel" for e in events)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -1406,8 +1481,10 @@ def phase_bounded(sw, adv_args, inline_entries, dev):
 
 
 def phase_k3(pn, pl, dig_k, card, dev):
-    """Phase 8: K3 against its plain version, K1 and the oracle; K3 against
-    K1 and the plain version in time on the headline pool."""
+    """Phase 8: K3 (the warp sponge) against its plain version, the
+    one-thread K3 it replaced, K1 and the oracle; K3 against K1 and the
+    plain version in time on the headline pool, and the device time of K3,
+    the one-thread K3 and K1 in turns."""
     edge = [0, 1, 3, 4, 7, 8, 135, 136, 137, 271, 272, 535, 536, 576]
     rng = torch.Generator().manual_seed(1)
     err = 0
@@ -1417,15 +1494,17 @@ def phase_k3(pn, pl, dig_k, card, dev):
         lens = torch.tensor(edge, dtype=torch.int32, device=dev)
         got = keccak_cuda.keccak256_cuda_raw(rows, lens)
         torch.cuda.synchronize()
-        err = max(err, max_err([got, got], [tkeccak.keccak256_raw(rows, lens),
-                                            keccak_cuda.keccak256_cuda(rows, lens)]))
+        err = max(err, max_err([got, got, got], [
+            tkeccak.keccak256_raw(rows, lens), keccak_cuda.keccak256_cuda(rows, lens),
+            keccak_cuda.keccak256_cuda_raw_thread(rows, lens)]))
         host, gh = rows.cpu().numpy(), got.cpu().numpy()
         for i, n in enumerate(edge):
             if n <= width:
                 check(bytes(gh[i]) == oracle_keccak(bytes(host[i, :n])),
                       f"K3 digest of length {n} (width {width}) differs from the oracle")
     got = keccak_cuda.keccak256_cuda_raw(pn, pl)
-    err = max(err, max_err([got, got], [tkeccak.keccak256_raw(pn, pl), dig_k]))
+    err = max(err, max_err([got, got, got], [tkeccak.keccak256_raw(pn, pl), dig_k,
+                                             keccak_cuda.keccak256_cuda_raw_thread(pn, pl)]))
     pn_h, pl_h, gh = pn.cpu().numpy(), pl.cpu().numpy(), got.cpu().numpy()
     for i in range(0, pn_h.shape[0], 701):
         check(bytes(gh[i]) == oracle_keccak(bytes(pn_h[i, :pl_h[i]])),
@@ -1442,17 +1521,20 @@ def phase_k3(pn, pl, dig_k, card, dev):
     t["k1_2"], t["k3_2"] = timed(keccak_cuda.keccak256_cuda), timed(keccak_cuda.keccak256_cuda_raw)
     plain_ms = timed(tkeccak.keccak256_raw)
     ms, k1_ms = min(t["k3"], t["k3_2"]), min(t["k1"], t["k1_2"])
-    dev_us = {name: device_us(lambda i: fn(pn, pl))
-              for name, fn in (("K3", keccak_cuda.keccak256_cuda_raw),
-                               ("K1", keccak_cuda.keccak256_cuda))}
-    log(f"[8 K3] keccak256_raw kernel == plain == K1 on edge lengths {edge} at "
-        f"widths 576 and 573 and the {pn.shape[0]}-row headline pool; oracle sample "
-        f"ok; max abs err 0")
+    fns = {"K3 one-thread": keccak_cuda.keccak256_cuda_raw_thread,
+           "K3": keccak_cuda.keccak256_cuda_raw, "K1": keccak_cuda.keccak256_cuda}
+    dev_us = {}
+    for name in [*fns, *reversed(fns)]:  # in turns, the lower of two windows each
+        dev_us[name] = lower(dev_us.get(name), device_us(lambda i: fns[name](pn, pl)))
+    log(f"[8 K3] keccak256_raw warp kernel == plain == the one-thread K3 == K1 on edge "
+        f"lengths {edge} at widths 576 and 573 and the {pn.shape[0]}-row headline pool; "
+        f"oracle sample ok; max abs err {err}")
     log(f"[8 time] headline pool, {pn.shape[0]} rows x {pn.shape[1]} B, one launch: "
         f"K3 {ms:.4f} ms, K1 {k1_ms:.4f} ms, K3 plain {plain_ms:.4f} ms "
-        f"(runs {t}); device time per launch ({DEVICE_TIMING}): "
-        f"K3 {us_text(dev_us['K3'])}, K1 {us_text(dev_us['K1'])} on {card}")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+        f"(runs {t}); device time per launch ({DEVICE_TIMING}, in turns, the lower of "
+        f"two windows): " + ", ".join(f"{k} {us_text(v)}" for k, v in dev_us.items())
+        + f" on {card}")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "device_us": dev_us}
 
 
 def device_us(fn):
@@ -1513,6 +1595,7 @@ def phase_storage(sw, card, dev):
     launches = read_counts()
     for name in ("keccak256", "hinted", "bounded"):
         check(launches[name] > 0, f"the storage path launched the {name} kernel no time")
+    check(launches["guard"] == 0, "the storage path launched the guard kernel")
     check(res.account_status.shape == (n_acc,) and res.slot_values.shape == (n_slots, 64),
           "unexpected storage result shapes")
     check(bool((res.account_status == mpt.FOUND).all()), "an account is not FOUND")
@@ -1780,6 +1863,7 @@ def phase_hint_modes(head, adv, txw, dev):
               f"the pooled verify did not launch K2 {mode}")
     launches = read_counts()
     check(launches["exact_walked"] == 0, "an honest batch re-ran in exact")
+    check(launches["guard"] == 0, "the hint modes' path launched the guard kernel")
     (hs, hv, hl), (ts, tv, tl) = (tuple(x.cpu().numpy() for x in r) for r in res["hinted"])
     check(bool((hs == mpt.FOUND).all()) and all(
         bytes(hv[i, :hl[i]]) == head["leaves"][e[2]] for i, e in enumerate(head["entries"])),
@@ -1873,8 +1957,9 @@ def phase_blocks(txw, repo, dev):
     torch.cuda.synchronize()
     host_s = time.time() - t0
     launches = read_counts()
-    for name in ("keccak256", "hinted", "guard", "exact", "exact_walked"):
+    for name in ("keccak256", "hinted", "exact", "exact_walked"):
         check(launches[name] > 0, f"the block path launched the {name} kernel no time")
+    check(launches["guard"] == 0, "the block path launched the guard kernel")
 
     txs = block["transactions"]
     check(rtx.status.shape == (len(txs),) and rtx.all_found
@@ -2012,15 +2097,54 @@ def phase_block_timings(head, txw, tx_result, card):
         f"({tx_bound[1]}); device {us_text(ab['transaction geometry']['hinted'])}")
 
 
+def flagged_walk(mode, *args, hints=None):
+    """A first walk that records its re-run flag (walk_lanes with a tag)."""
+    return mpt_cuda.walk_lanes(mode, *args, hints=hints, tag=mpt_cuda.next_tag())
+
+
+def fold_route(mode, *args, hints=None):
+    """walk_batch_cuda's two launches: the first walk with its folded flag,
+    then the guarded `exact` launch; (out, values)."""
+    tag = mpt_cuda.next_tag()
+    out, values = mpt_cuda.walk_lanes(mode, *args, hints=hints, tag=tag)
+    return mpt_cuda.rerun_exact(out, values, args, tag)
+
+
+def guard_route(mode, *args, hints=None):
+    """The route before the fold: the first walk, the guard kernel, the
+    guarded `exact` launch; (out, values)."""
+    out, values = mpt_cuda.walk_lanes(mode, *args, hints=hints)
+    return mpt_cuda.rerun_exact_guard_kernel(out, values, args)
+
+
+# phase 14's pairs: (new, old, what "new" and "old" are)
+AB_PAIRS = {
+    "K1": (keccak_cuda.keccak256_cuda, keccak_cuda.keccak256_cuda_thread,
+           "warp kernel", "one-thread kernel"),
+    "K2": (mpt_cuda.walk_lanes, mpt_cuda.walk_lanes_thread, "warp kernel",
+           "one-thread kernel"),
+    "K3": (keccak_cuda.keccak256_cuda_raw, keccak_cuda.keccak256_cuda_raw_thread,
+           "warp kernel", "one-thread kernel"),
+    "K2 flag store": (flagged_walk, mpt_cuda.walk_lanes, "with the flag store",
+                      "without it"),
+    "K2 re-run": (fold_route, guard_route, "flag folded into the first walk",
+                  "guard kernel + guarded exact"),
+}
+
+
 def phase_ab(head_segs, head_steps, slot_args, txw, pn, pl, psegs, card):
-    """Phase 14: K1 and K2 against the one-thread kernels that came before
-    them (`keccak256_cuda_thread`, `walk_lanes_thread`), on this card, in
-    turns (old, new, new, old; the lower of two windows each), device time
-    per batch from queued CUDA events; each batch's results from the two
-    kernels equal bit for bit. Returns the rows of the {"ab": ...} line."""
+    """Phase 14: K1, K2 and K3 against the one-thread kernels that came
+    before them (`keccak256_cuda_thread`, `walk_lanes_thread`,
+    `keccak256_cuda_raw_thread`); K2's first walk with and without the
+    folded flag's store; the re-run route with the flag folded in against
+    the guard kernel's route (`rerun_exact_guard_kernel`), on an honest and
+    a latching batch. On this card, in turns (old, new, new, old; the lower
+    of two windows each), device time per batch from queued CUDA events;
+    each batch's results from the two sides equal bit for bit. Returns the
+    rows of the {"ab": ...} line."""
     geo = txw["geo"]
     targs = lane_args(txw["batch"], txw["dig"])
-    cases = []  # (kernel, mode, batch label, [(args, kwargs), ...] one per launch)
+    cases = []  # (pair, mode, batch label, [(args, kwargs), ...] one per launch)
     for mode in mpt.WALK_MODES:
         cases.append(("K2", mode, f"headline, {len(head_segs)} segments",
                       [((mode, *a, 128, head_steps), {"hints": h}) for a, h in head_segs]))
@@ -2038,6 +2162,17 @@ def phase_ab(head_segs, head_steps, slot_args, txw, pn, pl, psegs, card):
     tpn, tpl = txw["pool"][0], txw["pool"][1]
     cases.append(("K1", "keccak256", f"transaction pool ({tpn.shape[0]} rows x "
                   f"{tpn.shape[1]} B)", [((tpn, tpl), {})]))
+    cases.append(("K3", "keccak256_raw", f"headline pool ({pn.shape[0]} rows x "
+                  f"{pn.shape[1]} B)", [((pn, pl), {})]))
+    heads = [(("hinted", *a, 128, head_steps), {"hints": h}) for a, h in head_segs]
+    cases.append(("K2 flag store", "hinted", f"headline, {len(head_segs)} segments", heads))
+    cases.append(("K2 re-run", "hinted", f"headline, {len(head_segs)} segments (no latch)",
+                  heads))
+    a0, h0 = head_segs[0]
+    corrupt = (h0.to(torch.int32) + 7).remainder(255).to(torch.uint8)
+    cases.append(("K2 re-run", "hinted", f"headline segment 0 {tuple(a0[0].shape)}, "
+                  f"corrupted hints (every proof latches)",
+                  [(("hinted", *a0, 128, head_steps), {"hints": corrupt})]))
 
     for label, a, kw, mvl, steps in (
             ("headline segment", head_segs[0][0], {"hints": head_segs[0][1]}, 128, head_steps),
@@ -2050,9 +2185,8 @@ def phase_ab(head_segs, head_steps, slot_args, txw, pn, pl, psegs, card):
             f"proof, shared memory {lay['proof_bytes']} B a proof, {lay['block_bytes']} B "
             f"a block of 4 warps, node rows staged: {lay['staging']}")
     rows = []
-    for kern, mode, label, calls in cases:
-        new_fn, old_fn = ((keccak_cuda.keccak256_cuda, keccak_cuda.keccak256_cuda_thread)
-                          if kern == "K1" else (mpt_cuda.walk_lanes, mpt_cuda.walk_lanes_thread))
+    for pair, mode, label, calls in cases:
+        new_fn, old_fn, new_name, old_name = AB_PAIRS[pair]
 
         def run(fn):
             return [fn(*a, **kw) for a, kw in calls]
@@ -2061,18 +2195,18 @@ def phase_ab(head_segs, head_steps, slot_args, txw, pn, pl, psegs, card):
         torch.cuda.synchronize()
         flat = lambda res: [x for r in res for x in (r if isinstance(r, tuple) else (r,))]
         e = max_err(flat(new), flat(old))
-        check(e == 0, f"{kern} {mode} on the {label}: the new kernel differs from the "
-                      f"one-thread kernel (max abs err {e})")
+        check(e == 0, f"{pair} {mode} on the {label}: {new_name} differs from {old_name} "
+                      f"(max abs err {e})")
         t = {}
         for which in ("old", "new", "new", "old"):
             fn = old_fn if which == "old" else new_fn
             t[which] = lower(t.get(which), device_us(lambda i: run(fn)))
         speed = (None if None in t.values() else t["old"] / t["new"])
-        rows.append({"kernel": kern, "mode": mode, "batch": label, "launches": len(calls),
-                     "old_us": t["old"], "new_us": t["new"], "speedup": speed,
-                     "equal": True})
-        log(f"[14 A/B] {kern} {mode}, {label}: one-thread kernel {us_text(t['old'])}, "
-            f"new kernel {us_text(t['new'])} per batch of {len(calls)} launch(es)"
+        rows.append({"kernel": pair, "mode": mode, "batch": label, "launches": len(calls),
+                     "old": old_name, "new": new_name, "old_us": t["old"],
+                     "new_us": t["new"], "speedup": speed, "equal": True})
+        log(f"[14 A/B] {pair} {mode}, {label}: {old_name} {us_text(t['old'])}, "
+            f"{new_name} {us_text(t['new'])} per batch of {len(calls)} call(s)"
             + ("" if speed is None else f", {speed:.2f}x") + f"; results equal bit for "
             f"bit ({DEVICE_TIMING}, the lower of two windows) on {card}")
     return rows
@@ -2121,6 +2255,48 @@ def plain_walk(batch, digests, hints, max_value_len, max_steps=None, with_reason
     status = out[:, 0]
     result = (status, values, torch.where(status == mpt.FOUND, out[:, 3], 0))
     return result + (out[:, 5],) if with_reasons else result
+
+
+def fold_checks(args, cases):
+    """K2's `exact` re-run as walk_batch_cuda decides it, on the card, for
+    each (label, hints) case of one batch (`args`: walk_lanes' positional
+    inputs, max_value_len and max_steps included; hints None walks
+    `bounded`): every case's first walk with a fresh tag, all queued before
+    any guarded launch; each folded flag against guard_plain of the words
+    its walk wrote; then each case's guarded `exact` launch, the tally
+    counting the cases that latched, every output (status, value, length,
+    reason) equal to the plain route; no guard kernel launched. Returns
+    (max abs err, proofs latched per case)."""
+    dev = args[0].device
+    guards = mpt_cuda.LAUNCHES["guard"]
+    queued = []
+    for label, hints in cases:
+        tag = mpt_cuda.next_tag()
+        mode = "bounded" if hints is None else "hinted"
+        queued.append((label, hints, tag, *mpt_cuda.walk_lanes(mode, *args, hints=hints, tag=tag)))
+    walked = mpt_cuda.exact_walked(dev)
+    err, latched = 0, []
+    for label, _, tag, out, _ in queued:
+        e = max_err([mpt_cuda.folded_flag(dev, tag)], [mpt_cuda.guard_plain(out)])
+        check(e == 0, f"the folded re-run flag differs from guard_plain on {label}")
+        err = max(err, e)
+        latched.append(int((out[:, 4] != 0).sum()))
+    for label, hints, tag, out, values in queued:
+        out, values = mpt_cuda.rerun_exact(out, values, args, tag)
+        status = out[:, 0]
+        got = (status, values, torch.where(status == mpt.FOUND, out[:, 3], 0), out[:, 5])
+        want = plain_walk([*args[:3], *args[4:7]], args[3], hints, args[7], args[8],
+                          with_reasons=True)
+        e = max_err(got, want)
+        check(e == 0, f"the folded re-run on {label} differs from the plain route "
+                      f"(max abs err {e})")
+        err = max(err, e)
+    ran = mpt_cuda.exact_walked(dev) - walked
+    want_ran = sum(n > 0 for n in latched)
+    check(ran == want_ran, f"the guarded exact launch walked {ran} times, {want_ran} of "
+                           f"{len(cases)} first walks latched")
+    check(mpt_cuda.LAUNCHES["guard"] == guards, "the folded re-run launched the guard kernel")
+    return err, latched
 
 
 def plain_table(pool, pool_hints=None, psegs=None):

@@ -1,7 +1,8 @@
-"""Kernels K1, K2 and K3 against their plain versions, on the card; K1
-and K2 also against the one-thread kernels that came before them; the
-`exact` re-run decided on the card against the route that read its flag on
-the host; the device hint pass and the sweeps on the card against the CPU.
+"""Kernels K1, K2 and K3 against their plain versions, on the card, and
+against the one-thread kernels that came before them; the `exact` re-run
+decided on the card (the flag folded into the first walk) against the
+route that read its flag on the host and the guard kernel it replaced; the
+device hint pass and the sweeps on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX and nothing of the JAX package, so it runs on a machine with PyTorch alone:
@@ -116,35 +117,63 @@ def test_walk_kernel_matches_plain(dev, mode):
     if mode == "exact":
         _check_device_hint_pass_and_sweeps(dev, packed)
         return
-    # the `exact` re-run decided on the card (guard kernel, guarded launch)
-    # equals the route that read the flag on the host, bit for bit, on an
-    # honest batch, the adversarial batch and a batch that latches; the
-    # device tally counts the guarded launches that walked (a guard kernel
-    # alone adds nothing to it)
+    # the `exact` re-run decided on the card (the flag folded into the first
+    # walk, a guarded launch) equals the route that read the flag on the
+    # host, bit for bit, on an honest batch, the adversarial batch and a
+    # batch that latches; the folded flag equals guard_plain of the first
+    # walk's words; no guard kernel is launched; the device tally counts the
+    # guarded launches that walked
     key = keccak256(b"card-over-bound")
     pair = rlp.encode([b"\x11" * 100, b"\x22"])  # item 1 past bounded's window
     latching = pack_proofs(_entries()[:4] + [(keccak256(pair), [pair], key)],
                            max_nodes=8, node_len=576)
+    inputs = {}
     for label, pk in (("honest", pack_proofs(_entries()[:12], max_nodes=8, node_len=576)),
                       ("adversarial", packed), ("latching", latching)):
         a, h = _walk_inputs(dev, pk)
         if mode == "hinted" and label == "latching":
             h = (h.to(torch.int32) + 7).remainder(255).to(torch.uint8)  # corrupt hints
         h = h if mode == "hinted" else None
-        first = mpt_cuda.walk_lanes(mode, *a, hints=h)[0][:, 4]
-        latched = bool((first != 0).any())
+        inputs[label] = (a, h)
+        tag = mpt_cuda.next_tag()
+        first = mpt_cuda.walk_lanes(mode, *a, hints=h, tag=tag)[0]
+        latched = bool((first[:, 4] != 0).any())
         assert latched if label == "latching" else not latched or label == "adversarial"
+        assert torch.equal(mpt_cuda.folded_flag(dev, tag), mpt_cuda.guard_plain(first))
+        assert int(mpt_cuda.folded_flag(dev, tag)) == int(latched), label
         walked = mpt_cuda.exact_walked(dev)
         guards = mpt_cuda.LAUNCHES["guard"]
         got = mpt_cuda.walk_batch_cuda(*a, hints=h, with_reasons=True)
-        assert mpt_cuda.LAUNCHES["guard"] == guards + 1
+        assert mpt_cuda.LAUNCHES["guard"] == guards
         assert mpt_cuda.exact_walked(dev) == walked + int(latched), label
-        flagged = torch.zeros((4, 6), dtype=torch.int32, device=dev)
-        flagged[1, 4] = 1
-        assert int(mpt_cuda.walk_guard(flagged)) == 1
-        assert mpt_cuda.exact_walked(dev) == walked + int(latched), label
-        for g, w in zip(got, _host_route(mode, a, h)):
+        want = _host_route(mode, a, h)
+        for g, w in zip(got, want):
             assert torch.equal(g, w), (mode, label)
+        # the guard kernel and its guarded launch, the baseline of the fold
+        base = mpt_cuda.rerun_exact_guard_kernel(*mpt_cuda.walk_lanes(mode, *a, hints=h), a)
+        assert mpt_cuda.LAUNCHES["guard"] == guards + 1
+        assert torch.equal(base[0][:, 0], want[0]) and torch.equal(base[1], want[1])
+        assert mpt_cuda.exact_walked(dev) == walked + 2 * int(latched), label
+    # two batches' first walks queued before either batch's guarded launch:
+    # each keeps its own flag, and only the batch that latched walks again
+    walked = mpt_cuda.exact_walked(dev)
+    queued = []
+    for label in ("latching", "honest"):
+        a, h = inputs[label]
+        tag = mpt_cuda.next_tag()
+        out, values = mpt_cuda.walk_lanes(mode, *a, hints=h, tag=tag)
+        queued.append((label, a, h, tag, out, values))
+    for label, a, h, tag, out, values in queued:
+        assert torch.equal(mpt_cuda.folded_flag(dev, tag), mpt_cuda.guard_plain(out)), label
+    for label, a, h, tag, out, values in queued:
+        out, values = mpt_cuda.rerun_exact(out, values, a, tag)
+        want = _host_route(mode, a, h)
+        assert torch.equal(out[:, 0], want[0]) and torch.equal(values, want[1]), label
+        assert torch.equal(out[:, 5], want[3]), label
+    assert mpt_cuda.exact_walked(dev) == walked + 1
+    flagged = torch.zeros((4, 6), dtype=torch.int32, device=dev)
+    flagged[1, 4] = 1
+    assert int(mpt_cuda.walk_guard(flagged)) == 1
 
 
 def _walk_inputs(dev, packed):
@@ -292,19 +321,24 @@ def _check_hinted_variants(dev, packed):
 
 def test_keccak_raw_kernel_matches_plain_and_k1(dev):
     """K3 on the edge lengths, at a width that is a multiple of 8 (576) and
-    at one that is not (573): equal to its plain version, to K1 and to the
-    oracle."""
+    at one that is not (573), and on rows of two to sixteen blocks (2092 B,
+    lengths past the width too): equal to its plain version, to the
+    one-thread K3 it replaced, to K1 and to the oracle."""
     edge = [0, 1, 3, 4, 7, 8, 135, 136, 137, 271, 272, 535, 536, 573]
+    long = [272, 273, 543, 544, 1000, 1500, 2091, 2092, 2176]
     rng = np.random.default_rng(7)
-    for width in (576, 573):
-        data = rng.integers(0, 256, (len(edge), width), dtype=np.uint8)
+    for width, lengths in ((576, edge), (573, edge), (2092, long)):
+        data = rng.integers(0, 256, (len(lengths), width), dtype=np.uint8)
         rows = torch.from_numpy(data).to(dev)
-        lens = torch.tensor(edge, dtype=torch.int32, device=dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         before = keccak_cuda.LAUNCHES["keccak256_raw"]
         got = keccak_cuda.keccak256_cuda_raw(rows, lens)
         torch.cuda.synchronize()
         assert keccak_cuda.LAUNCHES["keccak256_raw"] == before + 1
         assert torch.equal(got, tkeccak.keccak256_raw(rows, lens))
+        assert torch.equal(got, keccak_cuda.keccak256_cuda_raw_thread(rows, lens))
         assert torch.equal(got, keccak_cuda.keccak256_cuda(rows, lens))
-        for i, n in enumerate(edge):
-            assert bytes(got[i].cpu().numpy()) == keccak256(bytes(data[i, :n]))
+        assert keccak_cuda.LAUNCHES["keccak256_raw"] == before + 1
+        for i, n in enumerate(lengths):
+            if n <= width:
+                assert bytes(got[i].cpu().numpy()) == keccak256(bytes(data[i, :n]))

@@ -164,7 +164,15 @@ def test_hinted_corrupt_hints_latch_and_keep_results():
     tt = _tensors(packed)
     dig = tmpt.hash_nodes(tt[0], tt[1])
     good = _hints(packed)
+    tag = mpt_cuda.next_tag()
     ref = mpt_cuda.walk_batch_cuda(*tt[:3], dig, *tt[3:], 128, with_reasons=True)
+    # the re-run flag's tags: the CPU route takes none; they are fresh and
+    # never 0 (a slot's value before its first store), and FLAG_RING first
+    # walks in a row, queued ahead of their re-runs, take as many slots
+    tags = [mpt_cuda.next_tag() for _ in range(mpt_cuda.FLAG_RING)]
+    assert tags == list(range(tag + 1, tag + 1 + mpt_cuda.FLAG_RING)) and tag > 0
+    slots = {mpt_cuda.flag_slot(t) for t in tags}
+    assert slots == set(range(mpt_cuda.FLAG_RING))
     fast, _ = tmpt.walk_kernel_plain("hinted", *tt[:3], dig, *tt[3:], 128, 8,
                                      hints=good)
     assert (fast[:, 4] == 0).all()

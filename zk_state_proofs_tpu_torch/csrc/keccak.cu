@@ -1,5 +1,6 @@
 // Kernel K1: batched Ethereum Keccak-256 (legacy 0x01 ... 0x80 padding).
-// Kernel K3, the same digests from raw little-endian words, is below it.
+// Kernel K3, the same digests from raw little-endian words, is at the end,
+// on K1's warp sponge.
 //
 // Replaces zk_state_proofs_tpu/ops/keccak_pallas.py::_keccak_kernel, which
 // hashes (8, 128) lane tiles of pre-padded, pre-assembled u32 hi/lo lane
@@ -163,16 +164,8 @@ __global__ void keccak256_rows_thread_kernel(const uint8_t* __restrict__ rows,
   }
 }
 
-// Kernel K3: the same digests from raw little-endian row words. Replaces
-// zk_state_proofs_tpu/ops/keccak_pallas.py::_keccak_kernel_raw. Row i is
-// n_words u32 words (n_words even, rows 8-byte aligned); Keccak lane j of
-// block ib is words 34*ib + 2j (low half) and 34*ib + 2j + 1 (high half),
-// fetched as one aligned 8-byte load. The bytes past the length are masked
-// off, and the 0x01 pad byte and the final 0x80 byte are xored in with
-// masks (keccak_pallas.py:234-261), so no byte is handled one at a time.
-// Absorbs block 0 always and block ib > 0 while len / 136 + 1 > ib, for
-// ib < num_blocks. Bound like K1 by integer ALU work; its loads are 8 bytes
-// wide instead of one.
+// Kernel K3's padding masks (keccak_pallas.py:234-261), shared with K1:
+// the low nb bytes of a word, and byte b at byte e of a word (0 outside it).
 __device__ __forceinline__ uint64_t byte_mask(long long nb) {
   return nb <= 0 ? 0ULL : (nb >= 8 ? ~0ULL : (1ULL << (8 * nb)) - 1);
 }
@@ -181,10 +174,19 @@ __device__ __forceinline__ uint64_t byte_at_lane(long long e, uint64_t b) {
   return (e >= 0 && e < 8) ? b << (8 * e) : 0ULL;
 }
 
-__global__ void keccak256_raw_kernel(const uint64_t* __restrict__ rows,
-                                     int n_words, int num_blocks,
-                                     const int32_t* __restrict__ lens, int n,
-                                     uint8_t* __restrict__ out) {
+// K3, one thread per message: the kernel that came before the warp sponge
+// below (keccak256_raw_warp_kernel), kept unchanged as the baseline of a
+// same-run A/B; no path calls it. Row i is n_words u32 words (n_words
+// even, rows 8-byte aligned); Keccak lane j of block ib is words
+// 34*ib + 2j (low half) and 34*ib + 2j + 1 (high half), fetched as one
+// aligned 8-byte load. The bytes past the length are masked off, and the
+// 0x01 pad byte and the final 0x80 byte are xored in with masks. Absorbs
+// block 0 always and block ib > 0 while len / 136 + 1 > ib, for
+// ib < num_blocks.
+__global__ void keccak256_raw_thread_kernel(const uint64_t* __restrict__ rows,
+                                            int n_words, int num_blocks,
+                                            const int32_t* __restrict__ lens, int n,
+                                            uint8_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int n_lanes = n_words / 2;
@@ -353,6 +355,63 @@ __global__ void __launch_bounds__(kMsgWarps * 32)
   if (lane < 4) reinterpret_cast<uint64_t*>(out + (long long)i * 32)[lane] = a;
 }
 
+// ---------------------------------------------------------------------------
+// Kernel K3: the same digests from raw little-endian row words, on K1's
+// warp sponge. Replaces zk_state_proofs_tpu/ops/keccak_pallas.py::
+// _keccak_kernel_raw (entered through keccak256_tpu_raw), which hashes
+// (8, 128) lane tiles of pre-split u32 word pairs.
+//
+// Design: one message a warp, the lane map and the permutation of K1
+// (sponge_lanes, keccak_f1600_warp). K3's contract is what K1 cannot
+// assume: row i is n_words u32 words (n_words even) at an 8-byte aligned
+// address, zero-padded past its data. So lane t < 17 fetches rate word t
+// of block ib, row words 34*ib + 2t and 34*ib + 2t + 1, as one aligned
+// 8-byte load, with no alignment branch and no byte loop; the bytes at or
+// past the length are masked off and the 0x01 and 0x80 pad bytes xored in
+// by masks (byte_mask, byte_at_lane). As in K1, the next block's load is
+// issued before the permutation of the current one. Absorbs block 0
+// always and block ib > 0 while len / 136 + 1 > ib, for ib < num_blocks
+// (the Pallas kernel's block count). Bound, like K1, by the shuffle issue
+// and latency of the permutation; its loads are one coalesced 136-byte
+// access a block. One warp a block, where K1 has two: on the headline
+// pool the kernel was faster so (PERF.md), likely because fewer warps
+// resident on an SM leave the long messages, which come first in a pool
+// sorted by block count, fewer short ones to share the shuffle pipe with.
+constexpr int kRawWarps = 1;  // warps (messages) a block
+
+__global__ void __launch_bounds__(kRawWarps * 32)
+    keccak256_raw_warp_kernel(const uint64_t* __restrict__ rows, int n_words,
+                              int num_blocks, const int32_t* __restrict__ lens,
+                              int n, uint8_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kRawWarps + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp
+  const int n_lanes = n_words / 2;
+  const uint64_t* row = rows + (long long)i * n_lanes;
+  const long long len = lens[i];
+  const int nblk = floor_div((int)len, kRate) + 1;
+  const int nb = max(1, min(nblk, num_blocks));
+  const long long q80 = (long long)nblk * kRate - 1;  // 0x80 position
+  const SpongeLanes s = sponge_lanes(lane);
+
+  // lane t < 17 absorbs word t of each rate block, padding by masks
+  auto absorb_word = [&](int ib) -> uint64_t {
+    if (lane >= 17 || ib >= nb) return 0ULL;
+    const int w = 17 * ib + lane;
+    const long long q = (long long)kRate * ib + 8 * lane;  // its first byte
+    const uint64_t x = w < n_lanes ? row[w] : 0ULL;
+    return (x & byte_mask(len - q)) ^ byte_at_lane(len - q, 0x01ULL) ^
+           byte_at_lane(q80 - q, 0x80ULL);
+  };
+  uint64_t a = 0, next = absorb_word(0);
+  for (int ib = 0; ib < nb; ++ib) {
+    a ^= next;
+    next = absorb_word(ib + 1);  // in flight during the permutation
+    a = keccak_f1600_warp(a, s, lane);
+  }
+  if (lane < 4) reinterpret_cast<uint64_t*>(out + (long long)i * 32)[lane] = a;
+}
+
 }  // namespace
 
 extern "C" int zkp_keccak256_rows_thread(const void* rows, long long row_stride,
@@ -382,13 +441,27 @@ extern "C" int zkp_keccak256_rows(const void* rows, long long row_stride,
   return (int)cudaGetLastError();
 }
 
+// K3 on the warp sponge (the raw-word hash)
 extern "C" int zkp_keccak256_raw(const void* words, int n_words,
                                  int num_blocks, const void* lens, int n,
                                  void* out, void* stream) {
   if (n > 0) {
+    const int blocks = (n + kRawWarps - 1) / kRawWarps;
+    keccak256_raw_warp_kernel<<<blocks, kRawWarps * 32, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)words, n_words, num_blocks, (const int32_t*)lens, n,
+        (uint8_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3 one thread a message (the baseline of the A/B)
+extern "C" int zkp_keccak256_raw_thread(const void* words, int n_words,
+                                        int num_blocks, const void* lens, int n,
+                                        void* out, void* stream) {
+  if (n > 0) {
     const int threads = 64;
     const int blocks = (n + threads - 1) / threads;
-    keccak256_raw_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    keccak256_raw_thread_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint64_t*)words, n_words, num_blocks, (const int32_t*)lens, n,
         (uint8_t*)out);
   }

@@ -132,14 +132,31 @@
 //    node[vnode][clip(vstart) + j] for j < vlen (0 past the buffer).
 //
 // The `exact` re-run is decided on the card, as the TPU path decides it
-// with a jax.lax.cond (mpt_pallas.py:981): after a hinted or bounded walk,
-// walk_guard_kernel (one block) ORs the batch's overflow words into a
-// device int, and the `exact` launch that follows carries a pointer to it
-// (WalkArgs.guard): every block returns at once where it is 0, and
-// otherwise overwrites the batch's outputs in place. The host reads no
-// flag, so a stream of batches queues with no sync between them. A
-// guarded launch that walks adds one to a device tally (WalkArgs.tally,
-// from its first block), the count of guarded launches that walked.
+// with a jax.lax.cond (mpt_pallas.py:981), and costs no launch of its own.
+// The first (hinted or bounded) walk of a batch carries a tag, unique to
+// that launch, and a pointer to a slot of the device's flag ring
+// (WalkArgs.flag; the slot is the tag modulo the ring's size): the lane
+// that writes a latched proof's overflow word stores the tag there. The
+// lanes of a warp that store do so in one instruction to one address, so
+// a warp makes one store at most, and every writer stores the same value,
+// so no atomic is needed. (A block-wide __syncthreads_or before one store
+// a block made the walk slower on the headline, with or without a flag:
+// the barrier cost more than the stores it saves, which happen only where
+// proofs latch and the batch is walked again anyway.) The guarded `exact`
+// launch that follows carries the same tag and slot: every block returns
+// at once unless the slot holds the tag, and otherwise overwrites the
+// batch's outputs in place. A slot not written for this tag holds an
+// older tag or 0 (tags start at 1), so nothing is ever zeroed, and
+// batches whose first walks are queued ahead of their guarded launches
+// (up to the ring's size) keep their own flags. The host reads no flag,
+// so a stream of batches queues with no sync between them. A guarded
+// launch that walks adds one to a device tally (WalkArgs.tally, from its
+// first block), the count of guarded launches that walked.
+//
+// walk_guard_kernel (zkp_walk_guard), the one-block guard that came before
+// the fold (it ORed the overflow words into a device int, which a guarded
+// launch read through WalkArgs.guard), stays below as the baseline of a
+// same-run A/B; no path calls it.
 //
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -177,10 +194,16 @@ struct WalkArgs {
   uint8_t* values;  // [B, max_value_len]
   int batch, d, n, kn, max_steps, max_value_len;
   int mode;  // a Mode
-  // a guarded launch walks only where *guard != 0 (nullptr: always)
+  // the baseline guard (walk_guard_kernel): a launch walks only where
+  // *guard != 0 (nullptr: always)
   const int32_t* guard;
   // a launch that walks adds one here (nullptr: no tally)
   unsigned long long* tally;
+  // the re-run flag, a slot of the device's flag ring (nullptr: none): a
+  // first (hinted or bounded) walk stores `tag` there where any of its
+  // proofs latched; an `exact` launch walks only where it holds `tag`
+  unsigned long long* flag;
+  unsigned long long tag;
 };
 
 namespace {
@@ -212,6 +235,14 @@ struct Pair {
   bool is_leaf, hp_ok, match;
   int n_path;
 };
+
+// whether a guarded launch leaves the batch as it is (every block returns
+// at once): the baseline guard is 0, or an `exact` launch's flag slot does
+// not hold its tag
+__device__ __forceinline__ bool skip_batch(const WalkArgs& a) {
+  return (a.guard != nullptr && *a.guard == 0) ||
+         (a.mode == EXACT && a.flag != nullptr && *a.flag != a.tag);
+}
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -495,7 +526,7 @@ __device__ __forceinline__ bool digest_find(const uint8_t* dig, long long s1,
 }
 
 __global__ void mpt_walk_thread_kernel(const WalkArgs a) {
-  if (a.guard != nullptr && *a.guard == 0) return;  // the whole block
+  if (skip_batch(a)) return;  // the whole block
   if (a.tally != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.tally, 1ULL);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.batch) return;
@@ -1000,7 +1031,7 @@ template <int G>
 __global__ void __launch_bounds__(kWarps * 32)
     mpt_walk_warp_kernel(const WalkArgs a, const WarpLayout L) {
   extern __shared__ __align__(16) uint8_t smem[];
-  if (a.guard != nullptr && *a.guard == 0) return;  // the whole block
+  if (skip_batch(a)) return;  // the whole block
   if (a.tally != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.tally, 1ULL);
   const int gi = threadIdx.x / G;  // the group's proof slot in the block
   const int b = blockIdx.x * (kWarps * 32 / G) + gi;
@@ -1165,6 +1196,9 @@ __global__ void __launch_bounds__(kWarps * 32)
                                  : (status == RUNNING ? R_TRUNCATED : reason);
     a.out[(long long)b * 6 + lane] = word;
   }
+  // a first walk records the batch's re-run flag: the lane that wrote a
+  // latched overflow word stores the tag
+  if (lane == 4 && ovf && a.flag != nullptr && a.mode != EXACT) *a.flag = a.tag;
 
   // ---- the value, out of the terminal row ----
   if (a.max_value_len > 0) {
@@ -1179,7 +1213,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // guard[0] = 1 if any proof's overflow word (out[b * 6 + 4]) is set, else
-// 0. One block: a batch's flags are a few KB.
+// 0. One block: a batch's flags are a few KB. The baseline of the fold
+// (above); no path launches it.
 __global__ void __launch_bounds__(1024)
     walk_guard_kernel(const int32_t* out, int batch, int32_t* guard) {
   int any = 0;
@@ -1280,7 +1315,7 @@ extern "C" void zkp_walk_layout(const WalkArgs* args, int* out) {
   out[3] = kWarps * 32 / out[1] * L.bytes;
 }
 
-// the guard of a guarded `exact` launch (walk_guard_kernel)
+// the baseline guard of a guarded `exact` launch (walk_guard_kernel)
 extern "C" int zkp_walk_guard(const int32_t* out, int batch, int32_t* guard,
                               void* stream) {
   walk_guard_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(out, batch, guard);

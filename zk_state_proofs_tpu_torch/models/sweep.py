@@ -17,7 +17,8 @@ Five forms, each returning the JAX function's counts, `total` and
 Per-batch statuses are reduced to counts on the card, into one int64 [3]
 tensor (FOUND, EXCLUDED, INVALID) read once at the end: the batch loops
 read nothing back, so launches queue with no sync between batches (the
-`exact` re-run is decided on the card too, `ops.mpt_cuda.rerun_exact`).
+`exact` re-run is decided on the card too, by a flag that the first walk
+records: `ops.mpt_cuda.rerun_exact`).
 `forbid_sync=True` runs a loop under torch.cuda.set_sync_debug_mode
 ("error"), so a sync there raises. K2 still writes each proof's value
 (max_value_len bytes); only statuses are counted, so every rate of a

@@ -68,10 +68,11 @@ def _declare(lib) -> None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p]
-    lib.zkp_keccak256_raw.restype = ctypes.c_int
-    lib.zkp_keccak256_raw.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    for name in ("zkp_keccak256_raw", "zkp_keccak256_raw_thread"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     for name in ("zkp_mpt_walk", "zkp_mpt_walk_thread"):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int

@@ -7,9 +7,11 @@ and what bounds it. `keccak256_cuda_thread` launches the
 one-thread-per-message kernel that came before it, kept only as the
 baseline of a same-run A/B (`chip_smoke.py`) and for the kernel tests; no
 path calls it. K3 replaces `_keccak_kernel_raw` (entered through
-`keccak256_tpu_raw`): the same digests, with every lane read as one
-little-endian 8-byte word and the padding applied by masks. As in the JAX
-package, K3 is not on the verify path.
+`keccak256_tpu_raw`): the same digests on K1's warp sponge, with every
+rate word read as one aligned little-endian 8-byte load and the padding
+applied by masks; `keccak256_cuda_raw_thread` launches the
+one-thread-per-message K3 that came before it, the baseline of the same
+A/B. As in the JAX package, K3 is not on the verify path.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the plain
 version (`ops.keccak.keccak256`, `ops.keccak.keccak256_raw`), a CUDA tensor
@@ -24,7 +26,7 @@ from . import keccak
 from ._build import check_launch, load_library
 
 LAUNCHES = {"keccak256": 0, "keccak256_raw": 0}
-THREAD_LAUNCHES = {"keccak256": 0}  # keccak256_cuda_thread's
+THREAD_LAUNCHES = {"keccak256": 0, "keccak256_raw": 0}  # the _thread wrappers'
 
 
 def _rows_launch(entry, counts, rows, lens):
@@ -66,13 +68,10 @@ def keccak256_cuda_thread(rows, lens):
     return _rows_launch("zkp_keccak256_rows_thread", THREAD_LAUNCHES, rows, lens)
 
 
-def keccak256_cuda_raw(data, lengths):
-    """data u8 [B, L], lengths i32 [B] -> digests u8 [B, 32] of each row's
-    first lengths[i] bytes, as `keccak256_cuda` gives them. The rows are
-    padded to a multiple of 8 bytes (as keccak256_tpu_raw pads them) so
-    that every lane is one aligned word pair."""
-    if data.device.type == "cpu":
-        return keccak.keccak256_raw(data, lengths)
+def _raw_launch(entry, counts, data, lengths):
+    """Check data and lengths, pad the rows to 8-byte aligned rows of a
+    multiple of 8 bytes (as keccak256_tpu_raw pads them) where they are
+    not, launch the C entry point `entry`, count it."""
     if data.device.type != "cuda":
         raise ValueError(f"keccak256_cuda_raw: unsupported device {data.device}")
     if data.dtype != torch.uint8 or data.ndim != 2:
@@ -93,9 +92,25 @@ def keccak256_cuda_raw(data, lengths):
         rows = data
     lib = load_library().lib
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    rc = lib.zkp_keccak256_raw(rows.data_ptr(), rows.shape[1] // 4,
-                               width // keccak.RATE + 1, lengths.data_ptr(), b,
-                               out.data_ptr(), stream)
+    rc = getattr(lib, entry)(rows.data_ptr(), rows.shape[1] // 4,
+                             width // keccak.RATE + 1, lengths.data_ptr(), b,
+                             out.data_ptr(), stream)
     check_launch(rc, "keccak256_raw kernel")
-    LAUNCHES["keccak256_raw"] += 1
+    counts["keccak256_raw"] += 1
     return out
+
+
+def keccak256_cuda_raw(data, lengths):
+    """data u8 [B, L], lengths i32 [B] -> digests u8 [B, 32] of each row's
+    first lengths[i] bytes, as `keccak256_cuda` gives them (K3, a warp a
+    message). The rows are padded to a multiple of 8 bytes where they are
+    not, so that every rate word is one aligned load."""
+    if data.device.type == "cpu":
+        return keccak.keccak256_raw(data, lengths)
+    return _raw_launch("zkp_keccak256_raw", LAUNCHES, data, lengths)
+
+
+def keccak256_cuda_raw_thread(data, lengths):
+    """keccak256_cuda_raw on the one-thread-per-message K3 (CUDA tensors
+    only): the same digests, for the A/B against the warp sponge."""
+    return _raw_launch("zkp_keccak256_raw_thread", THREAD_LAUNCHES, data, lengths)

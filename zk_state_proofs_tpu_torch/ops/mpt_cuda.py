@@ -16,20 +16,26 @@ calls it. `walk_batch_cuda` and
 `walk_batch_cuda_segmented` are the ports of `walk_batch_pallas` and
 `walk_batch_pallas_segmented`. When any proof latches the overflow flag in
 `hinted` or `bounded` mode, the whole batch is walked again in `exact`, as
-on the TPU, and the card decides it (`rerun_exact`): a guard kernel ORs
-the flags into a device int, and a guarded `exact` launch returns at once
-where it is 0. The host reads no flag.
+on the TPU, and the card decides it with no launch of its own
+(`rerun_exact`): the first walk carries a fresh tag (`next_tag`) and
+stores it into the tag's slot of the device's flag ring where a proof
+latched, and the guarded `exact` launch walks only where the slot holds
+the tag. The host reads no flag. `walk_guard` and
+`rerun_exact_guard_kernel`, the guard kernel and its guarded launch that
+came before the fold, stay only as the baseline of a same-run A/B
+(`chip_smoke.py`); no path calls them.
 
 Counts: LAUNCHES[mode] counts the walk kernel's launches in each mode,
-guarded `exact` launches included; LAUNCHES["guard"] the guard kernel's
-(one per guarded `exact` launch). `exact_walked(device)` reads the device
-tally of guarded launches that walked (one sync; `reset_counts` zeroes
-every count).
+guarded `exact` launches included; LAUNCHES["guard"] the baseline guard
+kernel's (0 on every path). `exact_walked(device)` reads the device tally
+of guarded launches that walked (one sync; `reset_counts` zeroes every
+count).
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 
@@ -41,6 +47,12 @@ _MODE_CODE = {"exact": 0, "hinted": 1, "bounded": 2, "hinted4": 3,  # WalkArgs.m
 LAUNCHES = {**dict.fromkeys(_MODE_CODE, 0), "guard": 0}
 THREAD_LAUNCHES = dict.fromkeys(_MODE_CODE, 0)  # walk_lanes_thread's
 _TALLY: dict = {}  # device -> int64 [1]: guarded `exact` launches that walked
+# A device's flag ring: slot tag % FLAG_RING holds the last tag whose first
+# walk latched there. Up to FLAG_RING first walks may be queued ahead of
+# their guarded `exact` launches.
+FLAG_RING = 4096
+_FLAGS: dict = {}  # device -> int64 [FLAG_RING], zero when made, never zeroed again
+_TAGS = itertools.count(1)  # next() is atomic under the interpreter lock
 
 
 class WalkArgs(ctypes.Structure):
@@ -64,6 +76,7 @@ class WalkArgs(ctypes.Structure):
         ("kn", ctypes.c_int), ("max_steps", ctypes.c_int),
         ("max_value_len", ctypes.c_int), ("mode", ctypes.c_int),
         ("guard", ctypes.c_void_p), ("tally", ctypes.c_void_p),
+        ("flag", ctypes.c_void_p), ("tag", ctypes.c_ulonglong),
     ]
 
 
@@ -98,12 +111,14 @@ def _word_aligned(nodes):
 
 def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
                key_lens, max_value_len, max_steps, hints, aligned, into=None,
-               guard=None, tally=None):
+               guard=None, tally=None, tag=None):
     """Check the inputs and allocate the outputs of one launch: (WalkArgs,
     out, values), or (None, out, values) for an empty batch. `into`: the
     (out, values) of an earlier launch on the same batch, written in
-    place; `guard`: the device int of a guarded launch; `tally`: a device
-    int64 the launch adds one to when it walks."""
+    place; `guard`: the baseline guard's device int; `tally`: a device
+    int64 the launch adds one to when it walks; `tag`: the re-run flag's
+    tag (a first walk stores it, an `exact` launch walks only where its
+    slot holds it)."""
     if nodes.device.type != "cuda":
         raise ValueError(f"walk_lanes: unsupported device {nodes.device}")
     if mode not in mpt.WALK_MODES:
@@ -150,17 +165,18 @@ def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
         out.data_ptr(), values.data_ptr(),
         b, d, n, kn, max_steps, max_value_len, _MODE_CODE[mode],
         None if guard is None else guard.data_ptr(),
-        None if tally is None else tally.data_ptr())
+        None if tally is None else tally.data_ptr(),
+        None if tag is None else _flag_slot_ptr(dev, tag), 0 if tag is None else tag)
     args.keep = nodes  # a padded copy lives as long as the struct
     return args, out, values
 
 
 def _launch(entry, counts, mode, *tensors, aligned, into=None, guard=None,
-            tally=None):
+            tally=None, tag=None):
     """One launch of the C entry point `entry` on walk_lanes' inputs,
     counted in `counts`; (out, values) as walk_lanes returns them."""
     args, out, values = _walk_args(mode, *tensors, aligned=aligned, into=into,
-                                   guard=guard, tally=tally)
+                                   guard=guard, tally=tally, tag=tag)
     if args is None:
         return out, values
     lib = load_library().lib
@@ -193,17 +209,22 @@ def walk_layout(mode: str, nodes, node_lens, num_nodes, digests, roots,
 
 def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
                key_nibbles, key_lens, max_value_len: int, max_steps: int,
-               hints=None):
+               hints=None, tag: int | None = None):
     """One K2 launch: every proof walked in `mode` (one of
     `ops.mpt.WALK_MODES`), without a fallback. Inputs and outputs as
-    `ops.mpt.walk_kernel_plain`: (out i32 [B, 6], values u8 [B, mvl])."""
+    `ops.mpt.walk_kernel_plain`: (out i32 [B, 6], values u8 [B, mvl]).
+    On the card, a `tag` (next_tag(); hinted and bounded modes) makes the
+    launch record the batch's re-run flag under it (folded_flag); a CPU
+    tensor takes the plain version and records nothing."""
     if nodes.device.type == "cpu":
         return mpt.walk_kernel_plain(mode, nodes, node_lens, num_nodes, digests,
                                      roots, key_nibbles, key_lens,
                                      max_value_len, max_steps, hints)
+    if tag is not None and mode == "exact":
+        raise ValueError("walk_lanes: a tag records a first (hinted or bounded) walk's flag")
     return _launch("zkp_mpt_walk", LAUNCHES, mode, nodes, node_lens, num_nodes,
                    digests, roots, key_nibbles, key_lens, max_value_len,
-                   max_steps, hints, aligned=False)
+                   max_steps, hints, aligned=False, tag=tag)
 
 
 def walk_lanes_thread(mode: str, nodes, node_lens, num_nodes, digests, roots,
@@ -216,12 +237,18 @@ def walk_lanes_thread(mode: str, nodes, node_lens, num_nodes, digests, roots,
                    max_value_len, max_steps, hints, aligned=True)
 
 
-def exact_tally(device) -> torch.Tensor:
-    """The device's int64 [1] tally of guarded `exact` launches that
-    walked (created zero on first use)."""
+def _card(device) -> torch.device:
+    """`device`, with the current card's index where "cuda" names none."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def exact_tally(device) -> torch.Tensor:
+    """The device's int64 [1] tally of guarded `exact` launches that
+    walked (created zero on first use)."""
+    device = _card(device)
     if device not in _TALLY:
         _TALLY[device] = torch.zeros(1, dtype=torch.int64, device=device)
     return _TALLY[device]
@@ -234,7 +261,8 @@ def exact_walked(device) -> int:
 
 
 def reset_counts() -> None:
-    """Zero the launch counts and every device tally."""
+    """Zero the launch counts and every device tally (not the flag rings,
+    whose slots need no zeroing)."""
     for counts in (LAUNCHES, THREAD_LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -242,16 +270,48 @@ def reset_counts() -> None:
         t.zero_()
 
 
+def next_tag() -> int:
+    """A fresh tag for one batch's first walk: never reused in this
+    process, and never 0, which every slot holds before its first store."""
+    return next(_TAGS)
+
+
+def flag_slot(tag: int) -> int:
+    """The slot of the flag ring that a first walk with `tag` writes."""
+    return tag % FLAG_RING
+
+
+def flag_ring(device) -> torch.Tensor:
+    """The device's flag ring, int64 [FLAG_RING] (made zero on first
+    use, once per device)."""
+    device = _card(device)
+    if device not in _FLAGS:
+        _FLAGS[device] = torch.zeros(FLAG_RING, dtype=torch.int64, device=device)
+    return _FLAGS[device]
+
+
+def _flag_slot_ptr(device, tag: int) -> int:
+    return flag_ring(device).data_ptr() + 8 * flag_slot(tag)
+
+
+def folded_flag(device, tag: int) -> torch.Tensor:
+    """The re-run flag that the first walk with `tag` recorded on the card,
+    i32 [1]: 1 where any of its proofs latched, as guard_plain of its out.
+    Read it before FLAG_RING later first walks have been queued."""
+    ring = flag_ring(device)
+    return (ring[flag_slot(tag)] == tag).to(torch.int32).reshape(1)
+
+
 def guard_plain(out):
-    """The plain version of the guard kernel: i32 [1], 1 where any proof
+    """The plain version of the re-run flag: i32 [1], 1 where any proof
     of out (i32 [B, 6]) latched its overflow flag (out[:, 4]), else 0."""
     return (out[:, 4] != 0).any().to(torch.int32).reshape(1)
 
 
 def walk_guard(out):
-    """The guard of the `exact` re-run (the predicate of the TPU path's
-    jax.lax.cond): i32 [1], as guard_plain. A CUDA tensor launches the
-    guard kernel; a CPU tensor takes guard_plain."""
+    """The baseline guard kernel (no path calls it): i32 [1], as
+    guard_plain, from one launch of its own. A CPU tensor takes
+    guard_plain."""
     if out.device.type == "cpu":
         return guard_plain(out)
     if out.device.type != "cuda" or out.dtype != torch.int32 or out.ndim != 2 \
@@ -266,22 +326,35 @@ def walk_guard(out):
     return guard
 
 
-def rerun_exact(out, values, args):
+def rerun_exact(out, values, args, tag: int | None):
     """Walk the batch again in `exact` where any proof latched the
     overflow flag — the counterpart of the TPU path's jax.lax.cond. On the
-    card the decision stays there: walk_guard writes the guard on the
-    device, and the `exact` launch that follows returns at once where it
-    is 0, else overwrites out and values in place and adds one to the
-    device tally (exact_tally). A CPU batch tests
+    card the decision stays there: the first walk recorded its flag under
+    `tag` (walk_lanes), and the `exact` launch that follows returns at once
+    unless the tag's slot holds it, else overwrites out and values in place
+    and adds one to the device tally (exact_tally). A CPU batch tests
     guard_plain on the host. args: walk_lanes' positional inputs. Returns
     (out, values)."""
     if out.shape[0] == 0:
         return out, values
-    guard = walk_guard(out)
     if out.device.type == "cpu":
-        return walk_lanes("exact", *args) if bool(guard) else (out, values)
+        return walk_lanes("exact", *args) if bool(guard_plain(out)) else (out, values)
+    if tag is None:
+        raise ValueError("rerun_exact: a batch on the card needs its first walk's tag")
     return _launch("zkp_mpt_walk", LAUNCHES, "exact", *args, None, aligned=False,
-                   into=(out, values), guard=guard, tally=exact_tally(out.device))
+                   into=(out, values), tally=exact_tally(out.device), tag=tag)
+
+
+def rerun_exact_guard_kernel(out, values, args):
+    """rerun_exact as it was before the flag was folded into the first
+    walk (CUDA tensors; baseline of the A/B only, no path calls it): the
+    guard kernel ORs out's flags into a device int, and the `exact` launch
+    that follows walks only where it is 1."""
+    if out.shape[0] == 0:
+        return out, values
+    return _launch("zkp_mpt_walk", LAUNCHES, "exact", *args, None, aligned=False,
+                   into=(out, values), guard=walk_guard(out),
+                   tally=exact_tally(out.device))
 
 
 def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
@@ -298,17 +371,18 @@ def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
     proof latches the overflow flag (wrong hints, an inline-child step in a
     hinted mode, an item past its bound, an out-of-order node in
     'ordered'), the whole batch is walked again in `exact` (rerun_exact,
-    decided on the card), so results equal `ops.mpt.walk_batch` on every
-    input."""
+    decided on the card: two launches in all), so results equal
+    `ops.mpt.walk_batch` on every input."""
     hint_mode = mpt.check_hint_mode(hint_mode)
     if max_steps is None:
         max_steps = nodes.shape[1] + 6
     mode = "bounded" if hints is None else hint_mode
     args = (nodes, node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
             max_value_len, max_steps)
-    out, values = walk_lanes(mode, *args, hints=hints)
+    tag = None if nodes.device.type == "cpu" else next_tag()
+    out, values = walk_lanes(mode, *args, hints=hints, tag=tag)
     fast_ovf = out[:, 4].clone() if with_overflow else None
-    out, values = rerun_exact(out, values, args)
+    out, values = rerun_exact(out, values, args, tag)
     status = out[:, 0]
     result = (status, values, torch.where(status == mpt.FOUND, out[:, 3], 0))
     if with_reasons:
