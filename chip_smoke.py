@@ -27,7 +27,14 @@ would call:
     `config5_sweep_with_root_reduction`): 65,536 accounts, batches of 4096,
     1,048,576 proofs through `sweep_resident_epochs`, and the other sweep
     forms; then trie roots on the card (`compute_root`) and the circuit
-    entry points.
+    entry points;
+  * BASELINE config 4 (bench_configs.py `config4_mixed_batch`): 4096
+    account, storage and transaction proofs through the disk cache
+    (`PackedProofs.save` / `load`) and `verify_proofs_pooled` without
+    pack-time hints or segment schedules;
+  * BASELINE config 6 (bench_configs.py `config6_distinct_1m`), not cut:
+    2^20 distinct account proofs in one resident epoch of
+    `sweep_resident_epochs`.
 
 Phases, each printing a line:
 
@@ -136,7 +143,29 @@ Phases, each printing a line:
      header (exit 1); each command's JSON and exit code equal the same
      command with --device cpu; `python -m zk_state_proofs_tpu_torch
      selftest` in a subprocess prints the in-process JSON; a Chrome trace
-     (utils.profiling.cuda_trace) of verify-tx on the card loads.
+     (utils.profiling.cuda_trace) of verify-tx on the card loads;
+ 19. config 4: the mixed batch packed, saved and loaded (the pool
+     validated on load; a flipped pool byte, two swapped leaf rows of
+     pool_idx and an out-of-range pool_idx each refused with
+     PackingError), then verify_proofs_pooled with no pack-time hints and
+     no segments (K1, the device hint pass, K2 hinted, the guarded exact):
+     every proof FOUND, no guarded exact launch walked, the device hint
+     pass equal to the host's hints, the results equal bit for bit to the
+     plain route on the card (with the host's hints) and to the batch
+     packed fresh; timed with CUDA events over distinct
+     iterations (byte N - 1 of every node and pool row takes a counter),
+     values and lengths in a checked accumulator; launches a call, the
+     guarded exact launches that walked, K2's shared-memory layout;
+ 20. config 6 at 2^20 accounts: the witness built and packed (seconds,
+     max depth, pool rows, the node table's bytes, past 2^31), one
+     resident epoch after a warm-up with another salt (proofs/s, pack /
+     dispatch / drain seconds, peak device memory); outside the timed
+     call, tables built again and every window read once: every proof
+     FOUND with its leaf as its value; K1 over the whole pool against the
+     plain keccak; epoch_batch on the first window, the first window past
+     byte 2^31 of the node table and the last window against the plain
+     walk; K1 over the pool and K2 `hinted` alone on the first window
+     timed.
 
 K1 is a warp per message and K2 a warp per proof over a shared-memory slab
 (csrc/keccak.cu, csrc/mpt_walk.cu); K2's `exact` re-run is decided on the
@@ -158,6 +187,7 @@ import io
 import json
 import os
 import re
+import resource
 import subprocess
 import sys
 import tempfile
@@ -190,7 +220,7 @@ try:
     from zk_state_proofs_tpu_torch.ops import keccak_cuda, mpt, mpt_cuda
     from zk_state_proofs_tpu_torch.ops._build import load_library
     from zk_state_proofs_tpu_torch.ops.account import decode_account
-    from zk_state_proofs_tpu_torch.ops.rlp import bytes_to_nibbles_device
+    from zk_state_proofs_tpu_torch.ops.rlp import bytes_to_nibbles_device, item_offsets
     from zk_state_proofs_tpu_torch.ops.trie_build import compute_root
     from zk_state_proofs_tpu_torch.oracle import (EthTrie, MissingKeyError,
                                                   keccak256 as oracle_keccak, rlp)
@@ -202,7 +232,7 @@ try:
     from zk_state_proofs_tpu_torch.utils.profiling import (cuda_timer, cuda_trace,
                                                            device_profile, queued_timer)
     from zk_state_proofs_tpu_torch.witness import (
-        ERC20_TRANSFER_TOPIC, encode_receipt, encode_transaction,
+        ERC20_TRANSFER_TOPIC, PackedProofs, PackingError, encode_receipt, encode_transaction,
         get_all_receipt_proof_inputs, get_all_transaction_proof_inputs,
         get_transaction_proof_input, host_item_offsets, load_fixture, pack_proofs,
         save_fixture, synthetic_block)
@@ -210,8 +240,9 @@ try:
     from zk_state_proofs_tpu_torch.witness.trie_plan import plan_index_trie
     from zk_state_proofs_tpu_torch.witness.types import StorageProofInput
     from zk_state_proofs_tpu_torch.witness_bridge import (
-        BATCH_FIELDS, POOL_FIELDS, account_entries, default_hasher, packed_to_tensors,
-        storage_world, sweep_world, tx_geometry_batch, tx_geometry_block)
+        BATCH_FIELDS, POOL_FIELDS, account_entries, default_hasher, distinct_world,
+        mixed_batch, packed_to_tensors, storage_world, sweep_world, tx_geometry_batch,
+        tx_geometry_block)
 except ImportError as exc:  # run outside a checkout of the repo
     print(f"FAIL: the repository's packages are not importable here: {exc}")
     sys.exit(1)
@@ -234,6 +265,13 @@ ROOT_BLOCK = (256, 5)     # synthetic_block(num_txs, seed): config 5's receipt-t
 PAR_ENTRY_BATCHES = 32    # sweep_entries(mesh=) batches in phase 17 (host packing bound)
 PAR_RANKS = 2             # gloo ranks sharing the one card in phase 17
 PAR_TIMEOUT_S = 420       # each spawned rank's deadline, and its collectives'
+MIXED_PROOFS = 4096       # bench_configs.py config4_mixed_batch (quick=False)
+# bench_configs.py config6_distinct_1m (quick=False), not cut: 2^20 distinct
+# accounts, one epoch of windows of 4096
+DISTINCT_ACCOUNTS = 1 << 20
+DISTINCT_BATCH = 4096
+PLAIN_CHUNK = 1 << 18     # pool rows a call of the plain keccak in phase 20
+INT32_BYTES = 1 << 31     # a byte offset past the int32 range
 # How device times are taken. torch.profiler lost kernel records in some
 # windows of this script's runs (fewer kernels than launched), so device
 # times come from CUDA events around calls queued behind a spin kernel.
@@ -613,28 +651,48 @@ def main() -> None:
     stamp("phase 17 (parallel)")
     cli = phase_cli(repo, card)
     stamp("phase 18 (cli)")
+
+    # ---- 19-20. BASELINE configs 4 and 6 ----------------------------------
+    mixed = phase_mixed(card, dev)
+    k1_err = max(k1_err, mixed["err"])
+    k2_err["hinted"] = max(k2_err["hinted"], mixed["err"])
+    stamp("phase 19 (config 4, mixed batch)")
+    distinct = phase_distinct(card, dev)
+    k1_err = max(k1_err, distinct["err"]["k1"])
+    k2_err["hinted"] = max(k2_err["hinted"], distinct["err"]["k2"])
+    stamp("phase 20 (config 6, 2^20 distinct accounts)")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "zk_state_proofs_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
     # ---- the kernels line -------------------------------------------------
     # each main path's launches, counted from zero over its own run (phases
-    # 5, 9, 11, 12, 15, 16, 17 and 18; phase 17's are its world-size-1
-    # run's and both spawned ranks'); `launches` is their sum. K2 `exact` also
-    # gives the guarded launches that walked (`walked`, the device tally).
+    # 5, 9, 11, 12, 15, 16, 17, 18, 19 and 20; phase 17's are its
+    # world-size-1 run's and both spawned ranks'); `launches` is their sum.
+    # K2 `exact` also gives the guarded launches that walked (`walked`, the
+    # device tally). K1 and K2 `hinted` also give their bounds at configs 4
+    # and 6's shapes (`bound_ms_by_path`) and their times at config 6's
+    # (`ms_by_path`: K1 over the pool, K2 alone on one window).
     by_path = {"accounts": launches, "storage": sto["launches"],
                "hint_modes": hm["launches"], "blocks": blk["launches"],
                "sweeps": swp["launches"], "roots_circuits": rc["launches"],
-               "parallel": par["launches"], "cli": cli["launches"]}
+               "parallel": par["launches"], "cli": cli["launches"],
+               "mixed": mixed["launches"], "distinct_1m": distinct["launches"]}
     src = "zk_state_proofs_tpu_torch/csrc/"
     kernels = [kernel_row(
         "keccak256", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:122",
         by_path, "keccak256", k1_err, k1_ms, k1_plain_ms, bound["k1"])]
+    kernels[-1]["bound_ms_by_path"] = {p: r["bound"]["k1"][0] for p, r in (
+        ("mixed", mixed), ("distinct_1m", distinct))}
+    kernels[-1]["ms_by_path"] = {"distinct_1m": distinct["ms"]["k1"]}
     for mode in ("hinted", "exact"):
         kernels.append(kernel_row(
             f"mpt_walk_{mode}", src + "mpt_walk.cu",
             "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, mode,
             k2_err[mode], k2[mode][0], k2[mode][1], bound[mode]))
+    kernels[1]["bound_ms_by_path"] = {p: r["bound"]["hinted"][0] for p, r in (
+        ("mixed", mixed), ("distinct_1m", distinct))}
+    kernels[1]["ms_by_path"] = {"distinct_1m": distinct["ms"]["hinted"]}
     walked = {path: counts["exact_walked"] for path, counts in by_path.items()}
     kernels[-1].update(walked=sum(walked.values()), walked_by_path=walked)
     for mode in VARIANTS:
@@ -1342,6 +1400,304 @@ def phase_cli(repo, card):
         f"around verify-tx wrote a Chrome trace of {len(events)} events, {kernel_events} "
         f"of them the card's kernels")
     return {"launches": launches}
+
+
+def tampered_pools(packed):
+    """Three tampered copies of a pooled witness's pool, (what, pool_nodes,
+    pool_idx): a byte flipped in a real pool row (row 0 is the zero row),
+    two proofs' leaf rows of pool_idx swapped, a pool_idx past the pool."""
+    pool_nodes, _, pool_idx = packed.pool()
+    flipped = pool_nodes.copy()
+    flipped[1, 0] ^= 0xFF
+    leaf = packed.num_nodes.astype(np.int64) - 1
+    leaf_rows = pool_idx[np.arange(packed.batch), leaf]
+    j = int(np.nonzero(leaf_rows != leaf_rows[0])[0][0])
+    swapped = pool_idx.copy()
+    swapped[0, leaf[0]], swapped[j, leaf[j]] = leaf_rows[j], leaf_rows[0]
+    beyond = pool_idx.copy()
+    beyond[packed.batch // 2, 0] = pool_nodes.shape[0]
+    return [("a flipped pool byte", flipped, pool_idx),
+            ("two leaf rows swapped", pool_nodes, swapped),
+            ("a pool_idx out of range", pool_nodes, beyond)]
+
+
+def cache_round_trip(packed, tmp):
+    """packed (its pool built) saved and loaded (the pool validated on
+    load), and each tampered cache refused on load. Returns (the loaded
+    witness, save s, load s, the refusals' messages)."""
+    path = os.path.join(tmp, "witness.npz")
+    t0 = time.time()
+    packed.save(path)
+    save_s = time.time() - t0
+    t0 = time.time()
+    cached = PackedProofs.load(path)
+    load_s = time.time() - t0
+    for f in ("nodes", "node_lens", "num_nodes", "roots", "key_nibbles", "key_lens",
+              "pool_nodes", "pool_lens", "pool_idx"):
+        check(np.array_equal(getattr(cached, f), getattr(packed, f)),
+              f"the cache's {f} differs from the packed witness's")
+    refused = []
+    for what, pool_nodes, pool_idx in tampered_pools(packed):
+        bad = os.path.join(tmp, "tampered.npz")
+        PackedProofs(*packed.astuple(), pool_nodes=pool_nodes, pool_lens=packed.pool_lens,
+                     pool_idx=pool_idx).save(bad)
+        try:
+            PackedProofs.load(bad)
+        except PackingError as exc:
+            refused.append(f"{what}: {exc}")
+        else:
+            fail(f"a cache with {what} loaded")
+    return cached, save_s, load_s, refused
+
+
+def phase_mixed(card, dev):
+    """Phase 19: BASELINE config 4 (bench_configs.py config4_mixed_batch):
+    4096 account, storage and transaction proofs, packed, saved and loaded
+    through the disk cache (the pool validated; three tampered caches
+    refused), then verify_proofs_pooled with no pack-time hints and no
+    segment schedules (K1 over the pool, the device hint pass, K2
+    `hinted`, the guarded `exact`) on the card: every proof FOUND, equal
+    bit for bit to the plain route on the card and to the same batch
+    packed fresh; timed over distinct iterations."""
+    t0 = time.time()
+    _, fresh = mixed_batch(MIXED_PROOFS)
+    fresh.pool()
+    witness_s = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        cached, save_s, load_s, refused = cache_round_trip(fresh, tmp)
+    b, d, n = cached.nodes.shape
+    log(f"[19 witness] config 4 mixed batch: {b} proofs (accounts, storage slots, "
+        f"transactions) built in {witness_s:.2f} s; nodes {(b, d, n)} "
+        f"({cached.nodes.nbytes / 1e6:.1f} MB), pool {cached.pool_nodes.shape}; saved in "
+        f"{save_s:.3f} s, loaded and validated in {load_s:.3f} s; refused on load: "
+        f"{'; '.join(refused)}")
+
+    t = packed_to_tensors(cached, dev, hints=False)
+    batch, pool = [t[k] for k in BATCH_FIELDS], [t[k] for k in POOL_FIELDS]
+    steps = d + 6
+    # the main path of this phase, counted from zero: one call
+    zero_counts()
+    got = mpt.verify_proofs_pooled(*batch, *pool, max_value_len=128)
+    launches = read_counts()
+    for name in ("keccak256", "hinted", "exact"):
+        check(launches[name] > 0, f"the mixed batch launched the {name} kernel no time")
+    check(launches["guard"] == 0, "the mixed batch launched the guard kernel")
+    status = got[0].cpu().numpy()
+    check(bool((status == mpt.FOUND).all()),
+          f"mixed batch: {int((status == mpt.FOUND).sum())} of {b} proofs FOUND")
+    # the reference takes the host's hints (native scan), so that the
+    # device hint pass, which the port's call ran, is held against them
+    host_hints = torch.from_numpy(cached.pool_hints()).to(dev)
+    check(torch.equal(item_offsets(pool[0]), host_hints),
+          "the device hint pass differs from the host's hints on the mixed pool")
+    # no node of this batch is inline (< 32 B): no first walk latches
+    check(launches["exact_walked"] == 0,
+          f"{launches['exact_walked']} guarded exact launches walked on the mixed batch")
+    want = plain_pooled(batch, pool, host_hints, max_value_len=128)
+    ft = packed_to_tensors(fresh, dev, hints=False)
+    again = mpt.verify_proofs_pooled(*[ft[k] for k in BATCH_FIELDS + POOL_FIELDS],
+                                     max_value_len=128)
+    err = {"plain route": max_err(got, want), "fresh pack": max_err(got, again)}
+    check(max(err.values()) == 0, f"the mixed batch differs: max abs err {err}")
+    dig, hints = mpt.hash_nodes_pooled(*pool, with_hints=True)
+    layout = mpt_cuda.walk_layout("hinted", *batch[:3], dig, *batch[3:], 128, steps,
+                                  hints=hints)
+    del ft, again, want, dig, hints, host_hints
+
+    # distinct work per iteration: byte N - 1 of every node and pool row (a
+    # padding byte: node_len is the largest node + 4) takes the counter;
+    # every value byte and length folded into checked accumulators
+    nodes, pnodes = batch[0], pool[0]
+    value_fold = got[1].to(torch.int64).sum(1) + (got[2].to(torch.int64) << 8)
+    acc = torch.zeros(b, dtype=torch.int64, device=dev)
+    accv = torch.zeros(b, dtype=torch.int64, device=dev)
+
+    def call(i):
+        nodes[:, :, -1] = i & 0xFF
+        pnodes[:, -1] = i & 0xFF
+        s, v, ln = mpt.verify_proofs_pooled(*batch, *pool, max_value_len=128)
+        acc.add_(s)
+        accv.add_(v.to(torch.int64).sum(1) + (ln.to(torch.int64) << 8))
+
+    runs = []
+    for _ in range(2):
+        acc.zero_()
+        accv.zero_()
+        runs.append(cuda_timer(call, TIMED_ITERS))
+        check(bool((acc == (TIMED_ITERS + 2) * mpt.FOUND).all())
+              and bool((accv == (TIMED_ITERS + 2) * value_fold).all()),
+              "the perturbed padding changed the mixed batch's results")
+    ms = min(runs)
+    # device time from torch.profiler: a call's ~800 launches overflow the
+    # launch queue behind a spin kernel (queued_timer), so the host blocks
+    prof = device_profile(call, 5)
+    top = "; ".join(f"{nm[:40]} {t * 1e3:.1f} us x{c:.0f}" for nm, t, c in prof["top"])
+    kn = batch[4].shape[1]
+    bound = {"k1": keccak_bound(pool[1], ((pool[0].shape[0], n),)),
+             "hinted": walk_bound(*batch[:3], kn, 128, True)}
+    per_call = {k: v for k, v in launches.items() if v and k != "exact_walked"}
+    log(f"[19 time] config 4 mixed batch {(b, d, n)}, cache-loaded, no pack-time hints, no "
+        f"segments: {ms:.4f} ms/batch = {b / ms * 1e3:,.0f} proofs/s ({TIMED_ITERS} distinct "
+        f"iterations a run, CUDA events, runs {[round(r, 4) for r in runs]}; values and "
+        f"lengths in a checked accumulator); torch.profiler over 5 calls: host "
+        f"{prof['wall_ms']:.4f} ms a call, device busy "
+        f"{prof['busy_ms']:.4f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
+        f"{prof['launches']:.0f} device launches a call, top {top}; wrapper launches a call "
+        f"{per_call}, guarded exact launches that walked {launches['exact_walked']}; K2 "
+        f"layout {layout}; bound K1 "
+        f"{bound['k1'][0]:.6f} ms ({bound['k1'][1]}), K2 hinted {bound['hinted'][0]:.6f} ms "
+        f"({bound['hinted'][1]}) on {card}")
+    log(f"[19 check] all {b} proofs FOUND; the device hint pass == the host's hints on "
+        f"the {pool[0].shape[0]}-row pool; status, values and lengths == the plain route "
+        f"(host hints) on the card and == the fresh pack (max abs err {err})")
+    return {"launches": launches, "err": max(err.values()), "bound": bound}
+
+
+def phase_distinct(card, dev):
+    """Phase 20: BASELINE config 6 (bench_configs.py config6_distinct_1m),
+    not cut: 2^20 distinct accounts, their proofs packed longest first at
+    node_len 576, one resident epoch (sweep_resident_epochs, 256 windows of
+    4096) after a warm-up with another salt; then, outside the timed call,
+    every proof FOUND with its leaf as its value (epoch_batch over tables
+    built again, one host read a window), K1 over the whole pool and
+    epoch_batch on the first window, the first window past byte 2^31 of the
+    node table and the last window against their plain versions; peak
+    device memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    w = distinct_world(DISTINCT_ACCOUNTS)
+    witness_s = time.time() - t0
+    t0 = time.time()
+    gp = w.pack()
+    order = w.depth_order()  # row r holds account order[r]
+    pool_nodes, pool_lens, _ = gp.pool()
+    pack_s = time.time() - t0
+    a, d, n = gp.nodes.shape
+    longest = int(gp.node_lens.max())
+    check(longest < n, f"a node is {longest} B long, not under N = {n}: the epoch counter "
+                       f"would land on a node byte")
+    table_bytes = a * d * n
+    check(table_bytes > INT32_BYTES, f"the node table has {table_bytes} bytes, not past 2^31")
+    depth = {int(k): int(c) for k, c in enumerate(np.bincount(gp.num_nodes)) if c}
+    host_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    log(f"[20 witness] config 6: {a} distinct accounts built in {witness_s:.1f} s, packed "
+        f"(longest proof first) with its pool in {pack_s:.1f} s; nodes {(a, d, n)} "
+        f"({table_bytes / 1e9:.3f} GB), pool {pool_nodes.shape} ({pool_nodes.nbytes / 1e9:.3f} "
+        f"GB), max_depth {w.max_nodes}, longest node {longest} of {n} B, proofs by depth "
+        f"{depth}; host peak RSS {host_gb:.1f} GB")
+
+    steps = w.max_nodes
+    kw = dict(max_steps=steps, device=dev, forbid_sync=True)
+    # the main path of this phase, counted from zero: the warm-up and the
+    # measured call (each builds its own tables and frees them on return)
+    zero_counts()
+    warm = sweep_resident_epochs(gp, 1, DISTINCT_BATCH, salt=0x15A, **kw)
+    res = sweep_resident_epochs(gp, 1, DISTINCT_BATCH, salt=7, **kw)
+    launches = read_counts()
+    peak_sweep = torch.cuda.max_memory_allocated(dev)
+    for name, r in (("warm-up", warm), ("measured", res)):
+        check(r.total == a and r.found == a,
+              f"config 6 {name}: {r.found} of {r.total} proofs FOUND, {a} expected")
+    for name in ("keccak256", "hinted", "exact"):
+        check(launches[name] > 0, f"config 6 launched the {name} kernel no time")
+    check(launches["guard"] == 0, "config 6 launched the guard kernel")
+    log(f"[20 sweep] config 6 {form_line('one resident epoch', res)} (warm-up "
+        f"{warm.proofs_per_sec:,.0f} proofs/s, pack {warm.pack_seconds:.4f} s); pack_seconds "
+        f"is the upload, K1 over the pool, the hint pass and the table expansion; peak device "
+        f"memory {peak_sweep / 1e9:.3f} GB (torch.cuda.max_memory_allocated over the warm-up "
+        f"and the measured call); wrapper launches {launches}; on {card}")
+
+    # the check, outside the timed call: tables built once more
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    tables = epoch_tables(gp, dev)
+    torch.cuda.synchronize()
+    tables_s = time.time() - t0
+    leaves = [w.leaves[i] for i in order]
+    check(max(map(len, leaves)) <= 128, "a leaf is longer than the value window")
+    want_lens = np.fromiter(map(len, leaves), np.int32, count=a)
+    want_values = np.frombuffer(b"".join(x.ljust(128, b"\0") for x in leaves),
+                                np.uint8).reshape(a, 128)
+    del leaves
+    starts = [int(x) for x in epoch_windows(a, DISTINCT_BATCH)]
+    for s0 in starts:
+        st, v, ln = epoch_batch(tables, s0, DISTINCT_BATCH, 0x3C, 128, steps, dev)
+        host = torch.cat([v, torch.stack([st, ln], 1).view(torch.uint8)], 1).cpu().numpy()
+        rows = slice(s0, s0 + DISTINCT_BATCH)
+        words = host[:, 128:].copy().view(np.int32)
+        check(bool((words[:, 0] == mpt.FOUND).all()), f"config 6 window at row {s0}: "
+              f"{int((words[:, 0] == mpt.FOUND).sum())} of {DISTINCT_BATCH} proofs FOUND")
+        check(np.array_equal(words[:, 1], want_lens[rows])
+              and np.array_equal(host[:, :128], want_values[rows]),
+              f"config 6 window at row {s0}: a value differs from its leaf")
+    del want_values, want_lens
+    # K1 over the whole pool (one launch) against the plain keccak
+    pn = torch.from_numpy(pool_nodes).to(dev)
+    pl = torch.from_numpy(pool_lens.astype(np.int32)).to(dev)
+    dig = mpt.hash_pool(pn, pl)
+    k1 = 0
+    for c in range(0, pn.shape[0], PLAIN_CHUNK):
+        k1 = max(k1, max_err([dig[c:c + PLAIN_CHUNK]],
+                             [tkeccak.keccak256(pn[c:c + PLAIN_CHUNK], pl[c:c + PLAIN_CHUNK])]))
+    check(k1 == 0, f"K1 differs from plain keccak on the config 6 pool (max abs err {k1})")
+    k1_ms = cuda_timer(lambda i: mpt.hash_pool(pn, pl), 5)
+    bound = {"k1": keccak_bound(pl, ((pn.shape[0], n),))}
+    del pn, pl, dig
+    # epoch_batch against the plain route on three windows, each a view of
+    # the node table at its own byte offset
+    row_bytes = d * n
+    past = next(s for s in starts if s * row_bytes > INT32_BYTES)
+    errs = {}
+    for name, s0 in (("first", starts[0]), ("first past 2^31", past), ("last", starts[-1])):
+        got = epoch_batch(tables, s0, DISTINCT_BATCH, 0xA5, 128, steps, dev)
+        win = slice(s0, s0 + DISTINCT_BATCH)
+        batch = [tables[k][win] for k in ("nodes", "lens", "num", "roots", "knib", "klen")]
+        check(batch[0].data_ptr() - tables["nodes"].data_ptr() == s0 * row_bytes,
+              f"the {name} window is not a view at byte {s0 * row_bytes}")
+        dh = tables["dh"][win]
+        errs[f"{name} (byte {s0 * row_bytes})"] = max_err(
+            got, plain_walk(batch, dh[..., :32], dh[..., 32:], 128, steps))
+    check(max(errs.values()) == 0, f"epoch_batch differs from the plain walk: {errs}")
+    kn = tables["knib"].shape[1]
+    first = slice(0, DISTINCT_BATCH)
+    bound["hinted"] = walk_bound(tables["nodes"][first], tables["lens"][first],
+                                 tables["num"][first], kn, 128, True)
+    epoch_bound = walk_bound(tables["nodes"], tables["lens"], tables["num"], kn, 128, True)
+    # K2 `hinted` alone (one walk_lanes launch, as phase 14 times K2) on the
+    # first window, the shape of its bound
+    fb = [tables[k][first] for k in ("nodes", "lens", "num", "roots", "knib", "klen")]
+    fdh = tables["dh"][first]
+    k2_args = (*lane_args(fb, fdh[..., :32]), 128, steps)
+    k2_us = lower(*(device_us(lambda i: mpt_cuda.walk_lanes("hinted", *k2_args,
+                                                            hints=fdh[..., 32:]))
+                    for _ in range(2)))
+
+    def one(i):
+        return epoch_batch(tables, starts[i % len(starts)], DISTINCT_BATCH, i & 0xFF, 128,
+                           steps, dev)
+
+    dev_us = lower(device_us(one), device_us(one))
+    del tables, fb, fdh, k2_args
+    peak_check = torch.cuda.max_memory_allocated(dev)
+    wall_ms = 1e3 * res.seconds / res.batches
+    busy = "not measured" if dev_us is None else f"{100 * dev_us / 1e3 / wall_ms:.1f}%"
+    log(f"[20 time] config 6 window of {DISTINCT_BATCH} proofs {(DISTINCT_BATCH, d, n)}: host "
+        f"{wall_ms:.4f} ms a window in the sweep, device {us_text(dev_us)} a window "
+        f"({DEVICE_TIMING}): device busy {busy}; tables built again in {tables_s:.2f} s; "
+        f"K1 over the pool {k1_ms:.4f} ms (one launch, CUDA events over 5), bound "
+        f"{bound['k1'][0]:.6f} ms ({bound['k1'][1]}); K2 hinted alone on the first window "
+        f"{us_text(k2_us)} (one launch, {DEVICE_TIMING}, the lower of two windows), bound "
+        f"{bound['hinted'][0]:.6f} ms ({bound['hinted'][1]}), on the whole epoch "
+        f"{epoch_bound[0]:.6f} ms ({epoch_bound[1]}); peak device memory of the check "
+        f"{peak_check / 1e9:.3f} GB on {card}")
+    log(f"[20 check] all {a} proofs FOUND with their leaves as values ({len(starts)} windows, "
+        f"one host read each); K1 == plain keccak over the {pool_nodes.shape[0]}-row pool "
+        f"(max abs err {k1}); epoch_batch == the plain walk on {list(errs)} (max abs err "
+        f"{max(errs.values())})")
+    return {"launches": launches, "err": {"k1": k1, "k2": max(errs.values())},
+            "bound": bound, "peak_bytes": peak_sweep,
+            "ms": {"k1": k1_ms, "hinted": None if k2_us is None else k2_us / 1e3}}
 
 
 def zero_counts():

@@ -23,8 +23,8 @@ from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
 from zk_state_proofs_tpu_torch.ops import keccak_cuda, mpt, mpt_cuda
 from zk_state_proofs_tpu_torch.ops import rlp as rlp_ops
 from zk_state_proofs_tpu_torch.witness import host_item_offsets, pack_proofs
-from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, packed_to_tensors,
-                                                      sweep_world)
+from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, account_entries,
+                                                      packed_to_tensors, sweep_world)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,6 +114,7 @@ def test_walk_kernel_matches_plain(dev, mode):
         assert torch.equal(g, w) and torch.equal(o, w)
     if mode == "hinted":
         assert int(got[0][:, 4].sum()) > 0  # the inline-node proofs latch
+        _check_window_past_2_31(dev)
     if mode == "exact":
         _check_device_hint_pass_and_sweeps(dev, packed)
         return
@@ -174,6 +175,33 @@ def test_walk_kernel_matches_plain(dev, mode):
     flagged = torch.zeros((4, 6), dtype=torch.int32, device=dev)
     flagged[1, 4] = 1
     assert int(mpt_cuda.walk_guard(flagged)) == 1
+
+
+def _check_window_past_2_31(dev):
+    """K2 `hinted` on a window of a node table larger than 2^31 bytes (a
+    256-proof headline batch tiled to [2^20, 5, 576], as config 6's table
+    [2^20, D, 576] is): the window's view starts past byte 2^31 and is
+    walked in place; its results equal the plain walk of the same rows and
+    the kernel's on the untiled batch."""
+    entries, _ = account_entries(256)
+    small = pack_proofs(entries, node_len=576)
+    a, h = _walk_inputs(dev, small)
+    reps, win = (1 << 20) // small.batch, 4096
+    nodes = a[0].repeat(reps, 1, 1)
+    assert nodes.numel() > 1 << 31
+    s0 = nodes.shape[0] - win
+    window = nodes[s0:]
+    assert window.data_ptr() - nodes.data_ptr() > 1 << 31
+    k = win // small.batch
+    args = (window, *(x.repeat(k, *[1] * (x.ndim - 1)) for x in a[1:7]), *a[7:])
+    hints = h.repeat(k, 1, 1)
+    got = mpt_cuda.walk_lanes("hinted", *args, hints=hints)
+    want = mpt.walk_kernel_plain("hinted", *args, hints=hints)
+    one = mpt_cuda.walk_lanes("hinted", *a, hints=h)
+    for g, w, o in zip(got, want, one):
+        assert torch.equal(g, w) and torch.equal(g, o.repeat(k, 1))
+    assert bool((got[0][:, 0] == mpt.FOUND).all())
+    del nodes, window
 
 
 def _walk_inputs(dev, packed):

@@ -1,7 +1,8 @@
 """The port's own host modules (`oracle`, `witness.pack`, the block
 witness modules, the trie planner, `native`) against the JAX package's,
 whose copies they are: identical packed arrays, pools, hints and segment schedules, identical
-digests, encodings, tries and proofs."""
+digests, encodings, tries and proofs; disk caches that load in either
+package, and tampered ones that both refuse."""
 
 import json
 
@@ -10,9 +11,13 @@ import pytest
 import torch
 
 from zk_state_proofs_tpu import oracle as jax_oracle
+from zk_state_proofs_tpu.witness import PackedProofs as JaxPackedProofs
 from zk_state_proofs_tpu.witness import pack_proofs as jax_pack
+from zk_state_proofs_tpu.witness.pack import PackingError as JaxPackingError
+from zk_state_proofs_tpu.witness.pack import validate_node_pool as jax_validate_node_pool
 from zk_state_proofs_tpu_torch import native, oracle
-from zk_state_proofs_tpu_torch.witness import pack_proofs
+from zk_state_proofs_tpu_torch.witness import (PackedProofs, PackingError, pack_proofs,
+                                               validate_node_pool)
 from zk_state_proofs_tpu_torch.witness_bridge import account_entries, storage_world
 
 # The suite runs in several worker processes on one machine: one intra-op
@@ -44,9 +49,40 @@ def host_path(request, monkeypatch):
     return request.param
 
 
-def test_pack_matches_jax_on_headline_recipe(host_path):
+def test_pack_matches_jax_on_headline_recipe(host_path, tmp_path):
     entries, _ = account_entries(256)
-    _assert_same_pack(pack_proofs(entries, node_len=576), jax_pack(entries, node_len=576))
+    packed = pack_proofs(entries, node_len=576)
+    jpacked = jax_pack(entries, node_len=576)
+    _assert_same_pack(packed, jpacked)
+    # the disk cache: a witness saved by either package loads in the other
+    # (the pool validated on load), with every array equal
+    for save, load, name in ((packed.save, JaxPackedProofs.load, "port.npz"),
+                             (jpacked.save, PackedProofs.load, "jax.npz")):
+        save(tmp_path / name)
+        _assert_same_pack(load(tmp_path / name), packed)
+    validate_node_pool(packed.nodes, packed.node_lens, packed.num_nodes, *packed.pool())
+    jax_validate_node_pool(packed.nodes, packed.node_lens, packed.num_nodes, *packed.pool())
+    # three tampered caches, refused by both packages with the same message
+    pool_nodes, pool_lens, pool_idx = packed.pool()
+    flipped = pool_nodes.copy()
+    flipped[1, 0] ^= 0xFF  # a real pool row (row 0 is the zero row)
+    swapped = pool_idx.copy()
+    d0, d1 = int(packed.num_nodes[0]) - 1, int(packed.num_nodes[1]) - 1
+    swapped[0, d0], swapped[1, d1] = pool_idx[1, d1], pool_idx[0, d0]
+    assert swapped[0, d0] != pool_idx[0, d0]  # two distinct leaves
+    beyond = pool_idx.copy()
+    beyond[3, 0] = pool_nodes.shape[0]
+    for name, (pn, pi), prefix in (
+            ("flipped", (flipped, pool_idx), "pool integrity violation"),
+            ("swapped", (pool_nodes, swapped), "pool"),
+            ("beyond", (pool_nodes, beyond), "pool_idx out of range")):
+        bad = PackedProofs(*packed.astuple(), pool_nodes=pn, pool_lens=pool_lens, pool_idx=pi)
+        bad.save(tmp_path / f"{name}.npz")
+        with pytest.raises(PackingError, match=prefix) as got:
+            PackedProofs.load(tmp_path / f"{name}.npz")
+        with pytest.raises(JaxPackingError, match=prefix) as want:
+            JaxPackedProofs.load(tmp_path / f"{name}.npz")
+        assert str(got.value) == str(want.value), name
 
 
 def test_pack_matches_jax_on_storage_world(host_path):

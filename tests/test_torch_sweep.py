@@ -1,14 +1,17 @@
 """The port's sweep slice against the JAX package, on the CPU: the device
 hint pass, the resident entry points (indexed, prehashed, pool-stream)
-and every form of the five sweep functions. Bit-exact statuses, values
-and counts."""
+and every form of the five sweep functions; config 6's witness recipe.
+Bit-exact statuses, values and counts."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from zk_state_proofs_tpu import native as jax_native
 from zk_state_proofs_tpu.models import sweep_resident_epochs as jax_sweep_resident_epochs
+from zk_state_proofs_tpu.oracle import EthTrie as JaxEthTrie
+from zk_state_proofs_tpu.oracle import rlp as jrlp_host
 from zk_state_proofs_tpu.ops import mpt as jmpt
 from zk_state_proofs_tpu.ops import rlp as jrlp
 from zk_state_proofs_tpu.witness import pack_proofs as jax_pack
@@ -20,7 +23,7 @@ from zk_state_proofs_tpu_torch.ops import mpt as tmpt
 from zk_state_proofs_tpu_torch.ops import rlp as trlp
 from zk_state_proofs_tpu_torch.oracle import EthTrie, keccak256, rlp
 from zk_state_proofs_tpu_torch.witness import pack_proofs
-from zk_state_proofs_tpu_torch.witness_bridge import sweep_world
+from zk_state_proofs_tpu_torch.witness_bridge import distinct_world, sweep_world
 
 # The suite runs in several worker processes on one machine: one intra-op
 # thread each keeps torch's thread pools from oversubscribing its cores.
@@ -199,3 +202,22 @@ def test_sweeps_count_as_jax(mixed):
                         node_len=node_len, pool_rows=256, mesh=mesh, forbid_sync=True,
                         device="cpu")
     _assert_counts(res, want, total, 3)
+
+    # BASELINE config 6's recipe at 512 accounts: the keys, leaves and root
+    # of bench_configs.py's build, every proof FOUND by the epoch sweep
+    w = distinct_world(512)
+    nk = jax_native.keccak256
+    trie = JaxEthTrie(hasher=nk)
+    keys = [nk(b"m-acct-%d" % i) for i in range(512)]
+    leaves = [jrlp_host.encode([jrlp_host.int_to_min_bytes(i + 1),
+                                jrlp_host.int_to_min_bytes(10**18 + i), nk(b"sr%d" % i),
+                                nk(b"ch%d" % i)]) for i in range(512)]
+    for k, leaf in zip(keys, leaves):
+        trie.insert(k, leaf)
+    assert w.keys == keys and w.leaves == leaves and w.root == trie.root_hash()
+    order = w.depth_order()
+    assert [len(w.proofs[i]) for i in order] == sorted((len(p) for p in w.proofs),
+                                                       reverse=True)
+    res = sweep_resident_epochs(w.pack(), epochs=1, batch=128, max_steps=w.max_nodes,
+                                device="cpu")
+    _assert_counts(res, [512, 0, 0], 512, 4)

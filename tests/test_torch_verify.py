@@ -1,5 +1,6 @@
 """The port's pooled verification slice end to end vs the JAX package:
-verify_proofs_pooled (hints, depth segments, pool segments), the
+verify_proofs_pooled (hints, depth segments, pool segments; config 4's
+mixed batch without hints or segments), the
 diagnostic reasons, the model entry points and BatchVerifier. Bit-exact."""
 
 import subprocess
@@ -10,11 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from zk_state_proofs_tpu import native as jax_native
 from zk_state_proofs_tpu.models import BatchVerifier as JaxBatchVerifier
 from zk_state_proofs_tpu.oracle import EthTrie, keccak256, rlp
 from zk_state_proofs_tpu.ops import mpt as jmpt
 from zk_state_proofs_tpu.utils.config import BucketConfig as JaxBucketConfig
 from zk_state_proofs_tpu.witness import pack_proofs
+from zk_state_proofs_tpu.witness import synthetic_block as jax_synthetic_block
+from zk_state_proofs_tpu.witness.builders import (
+    get_transaction_proof_input as jax_get_transaction_proof_input)
 from zk_state_proofs_tpu_torch.models import (BatchVerifier, batch_commitment,
                                               diagnose_batch,
                                               verify_account_batch,
@@ -26,7 +31,7 @@ from zk_state_proofs_tpu_torch.oracle import MissingKeyError, TrieError
 from zk_state_proofs_tpu_torch.ops import mpt as tmpt
 from zk_state_proofs_tpu_torch.utils.config import BucketConfig
 from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, POOL_FIELDS,
-                                                      account_entries,
+                                                      account_entries, mixed_batch,
                                                       packed_to_tensors,
                                                       storage_world)
 
@@ -58,6 +63,48 @@ def test_pooled_verify_matches_jax(headline_256):
         for w, g in zip(want, got):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (np.asarray(want[0]) == tmpt.FOUND).all()
+    # BASELINE config 4's mixed batch (accounts, storage slots,
+    # transactions), pooled with no pack-time hints and no segment
+    # schedules: the device hint pass, as bench_configs.py calls it
+    entries, mixed = mixed_batch(total=512)
+    assert entries == _jax_config4_entries(512)
+    assert mixed.batch == 512 and mixed.nodes.shape[2] == max(
+        len(n) for _, p, _ in entries for n in p) + 4
+    want = jmpt.verify_proofs_pooled(*mixed.astuple(), *mixed.pool(), max_value_len=128)
+    t = packed_to_tensors(mixed, "cpu", hints=False)
+    got = tmpt.verify_proofs_pooled(*[t[k] for k in BATCH_FIELDS + POOL_FIELDS],
+                                    max_value_len=128)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (np.asarray(want[0]) == tmpt.FOUND).all()
+
+
+def _jax_config4_entries(total):
+    """bench_configs.py config4_mixed_batch's entries, built with the JAX
+    package's oracle and builders (its native keccak in the two tries:
+    the same digests as the oracle's, faster)."""
+    nk = jax_native.keccak256
+    third = total // 3
+    t = EthTrie(hasher=nk)
+    for i in range(256):
+        t.insert(nk(b"a%d" % i), rlp.encode([b"\x01", b"\x02", nk(b"s"), nk(b"c")]))
+    root = t.root_hash()
+    entries = []
+    for i in range(third):
+        k = nk(b"a%d" % (i % 256))
+        entries.append((root, t.get_proof(k), k))
+    st = EthTrie(hasher=nk)
+    for i in range(256):
+        st.insert(nk(nk(b"slot%d" % i)), rlp.encode_int(i + 1))
+    sroot = st.root_hash()
+    for i in range(third):
+        k = nk(nk(b"slot%d" % (i % 256)))
+        entries.append((sroot, st.get_proof(k), k))
+    fx = jax_synthetic_block(num_txs=32, seed=4)
+    tx_inputs = [jax_get_transaction_proof_input(fx["block"], i) for i in range(32)]
+    while len(entries) < total:
+        entries.append(tx_inputs[len(entries) % 32].as_entry())
+    return entries
 
 
 def _adversarial_packed():

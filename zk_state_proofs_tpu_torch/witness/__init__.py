@@ -1,8 +1,9 @@
 """Host witness layer: the port's own copies of `zk_state_proofs_tpu.witness`
 — the packer (proofs -> padded arrays, the unique-node pool, pack-time RLP
-offset hints, depth and pool segment schedules), the tx/receipt encoders,
-the wire types, the four proof-input builders, the typed RPC models and
-clients, and the recorded and synthetic fixtures."""
+offset hints, depth and pool segment schedules, the disk cache and its pool
+integrity check), the tx/receipt encoders, the wire types, the four
+proof-input builders, the typed RPC models and clients, and the recorded
+and synthetic fixtures."""
 
 from .builders import (
     WitnessError,
@@ -24,7 +25,8 @@ from .fixtures import (
     save_fixture,
     synthetic_block,
 )
-from .pack import PackedProofs, PackingError, host_item_offsets, pack_proofs
+from .pack import (PackedProofs, PackingError, host_item_offsets, pack_proofs,
+                   validate_node_pool)
 from .rpc import (
     ArbitrumClient,
     EthereumClient,
@@ -65,4 +67,5 @@ __all__ = [
     "record_proof_fixture",
     "save_fixture",
     "synthetic_block",
+    "validate_node_pool",
 ]

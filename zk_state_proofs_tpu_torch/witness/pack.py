@@ -1,7 +1,7 @@
 """Host-side witness packing: proofs -> padded device tensor bundles.
 
-The port's own copy of `zk_state_proofs_tpu.witness.pack` (without its disk
-cache), over the port's `oracle` and `native`. The equivalent of the
+The port's own copy of `zk_state_proofs_tpu.witness.pack`, its disk cache
+included, over the port's `oracle` and `native`. The equivalent of the
 reference's `MerkleProofInput` wire struct
 (reference: crypto-ops/src/types.rs:5-9 — `proof: Vec<Vec<u8>>, root_hash,
 key`): variable-length proof-node lists become zero-padded fixed-shape
@@ -174,6 +174,70 @@ class PackedProofs:
                 segs.append(seg)
             off = end
         return tuple(segs)
+
+    # -- disk cache: a packed witness persists, so that a sweep resumes
+    # without fetching and packing again; the same .npz keys as the JAX
+    # package's, so a cache written by either loads in the other. Pool
+    # hints are not saved (pool_hints() recomputes them). --
+    def save(self, path) -> None:
+        extra = {}
+        if self.pool_nodes is not None:
+            extra = {"pool_nodes": self.pool_nodes, "pool_lens": self.pool_lens,
+                     "pool_idx": self.pool_idx}
+        np.savez_compressed(
+            path,
+            nodes=self.nodes, node_lens=self.node_lens, num_nodes=self.num_nodes,
+            roots=self.roots, key_nibbles=self.key_nibbles, key_lens=self.key_lens,
+            **extra,
+        )
+
+    @classmethod
+    def load(cls, path) -> "PackedProofs":
+        with np.load(path) as z:
+            packed = cls(
+                nodes=z["nodes"], node_lens=z["node_lens"], num_nodes=z["num_nodes"],
+                roots=z["roots"], key_nibbles=z["key_nibbles"], key_lens=z["key_lens"],
+                pool_nodes=z["pool_nodes"] if "pool_nodes" in z else None,
+                pool_lens=z["pool_lens"] if "pool_lens" in z else None,
+                pool_idx=z["pool_idx"] if "pool_idx" in z else None,
+            )
+        # A deserialized pool is untrusted until validated: the pooled
+        # verifier hashes pool_nodes but walks nodes[i, j], so a stale or
+        # tampered cache could otherwise make invalid proofs verify.
+        if packed.pool_nodes is not None:
+            validate_node_pool(
+                packed.nodes, packed.node_lens, packed.num_nodes,
+                packed.pool_nodes, packed.pool_lens, packed.pool_idx,
+            )
+        return packed
+
+
+def validate_node_pool(nodes, node_lens, num_nodes, pool_nodes, pool_lens,
+                       pool_idx) -> None:
+    """Check nodes[i, j] == pool_nodes[pool_idx[i, j]] for every real row.
+
+    The invariant the pooled verifier trusts (ops.mpt.verify_proofs_pooled
+    hashes the pool, the walk reads nodes[i, j] bytes); raises PackingError
+    on any mismatch, with the JAX package's messages. Vectorized (one
+    gather and masked compares), cheap enough to run on every load."""
+    b, d, n = nodes.shape
+    u = pool_nodes.shape[0]
+    if pool_idx.shape != (b, d):
+        raise PackingError(f"pool_idx shape {pool_idx.shape} != {(b, d)}")
+    real = np.arange(d)[None, :] < np.asarray(num_nodes)[:, None]  # [B, D]
+    idx = np.asarray(pool_idx)
+    if (idx < 0).any() or (idx >= u).any():
+        raise PackingError("pool_idx out of range")
+    if not (np.asarray(pool_lens)[idx] == np.asarray(node_lens))[real].all():
+        raise PackingError("pool_lens disagree with node_lens")
+    gathered = np.asarray(pool_nodes)[idx]           # u8 [B, D, N]
+    byte_live = np.arange(n)[None, None, :] < np.asarray(node_lens)[:, :, None]
+    mismatch = (gathered != np.asarray(nodes)) & byte_live & real[:, :, None]
+    if mismatch.any():
+        i, j, _ = np.argwhere(mismatch)[0]
+        raise PackingError(
+            f"pool integrity violation: nodes[{i},{j}] != pool_nodes[pool_idx[{i},{j}]]"
+        )
 
 
 def _rlp_head_vec(rows, pos, n4):

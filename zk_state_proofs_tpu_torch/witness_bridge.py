@@ -1,7 +1,7 @@
 """PackedProofs -> torch tensors, with the JAX arrays' dtypes and layouts,
 and the witness recipes the port is driven with (the headline accounts,
 the grouped-storage world, the transaction-trie geometry batch, config
-5's sweep world).
+4's mixed batch, config 5's sweep world and config 6's distinct world).
 
 The port's state is the packed witness. `packed_to_tensors` moves the numpy
 arrays of a `witness.PackedProofs` onto `device` without changing dtype or
@@ -22,6 +22,7 @@ from .oracle import EthTrie, keccak256, rlp
 from .utils.device import resolve_device
 from .witness.builders import build_transaction_trie, get_all_transaction_proof_inputs
 from .witness.encoding import encode_transaction
+from .witness.fixtures import synthetic_block
 from .witness.pack import PackedProofs, pack_proofs
 
 
@@ -213,14 +214,51 @@ def tx_geometry_batch(block: dict, total: int = 4096) -> TxGeometryBatch:
         max_steps=packed.nodes.shape[1] + 2)
 
 
+def mixed_batch(total: int = 4096):
+    """BASELINE config 4's witness (bench_configs.py `config4_mixed_batch`,
+    quick=False is 4096): a third of `total` account proofs over a
+    256-account trie (key keccak(b"a%d"), leaf RLP [1, 2, keccak(b"s"),
+    keccak(b"c")]), a third storage proofs over a 256-slot trie (key
+    keccak(keccak(b"slot%d")), value encode_int(i + 1)), the rest
+    transaction proofs of synthetic_block(num_txs=32, seed=4) (those of
+    get_transaction_proof_input), each part cycling over its keys; packed
+    at node_len = the largest node + 4, so byte N - 1 is padding in every
+    row. No pack-time hints, no segment schedules. Returns (entries,
+    PackedProofs)."""
+    nk = default_hasher()
+    third = total // 3
+    t = EthTrie(hasher=nk)
+    for i in range(256):
+        t.insert(nk(b"a%d" % i), rlp.encode([b"\x01", b"\x02", nk(b"s"), nk(b"c")]))
+    root = t.root_hash()
+    entries = []
+    for i in range(third):
+        k = nk(b"a%d" % (i % 256))
+        entries.append((root, t.get_proof(k), k))
+    st = EthTrie(hasher=nk)
+    for i in range(256):
+        st.insert(nk(nk(b"slot%d" % i)), rlp.encode_int(i + 1))
+    sroot = st.root_hash()
+    for i in range(third):
+        k = nk(nk(b"slot%d" % (i % 256)))
+        entries.append((sroot, st.get_proof(k), k))
+    # the proofs of get_transaction_proof_input(block, i), from one trie build
+    tx_inputs = get_all_transaction_proof_inputs(synthetic_block(num_txs=32, seed=4)["block"])
+    while len(entries) < total:
+        entries.append(tx_inputs[len(entries) % 32].as_entry())
+    max_node = max(len(n) for _, p, _ in entries for n in p)
+    return entries, pack_proofs(entries, node_len=max_node + 4)
+
+
 @dataclass
 class SweepWorld:
-    """BASELINE config 5's witness set: every account of one state trie
-    with its proof (bench_configs.py `config5_sweep_with_root_reduction`)."""
+    """BASELINE config 5's and config 6's witness set: every account of one
+    state trie with its proof (bench_configs.py
+    `config5_sweep_with_root_reduction`, `config6_distinct_1m`)."""
 
     trie: EthTrie  # the state trie (proofs of absent keys too)
     root: bytes
-    keys: list     # keccak(b"sweep-acct-%d" % i)
+    keys: list     # keccak(prefix % i)
     proofs: list   # proof of keys[i]
     leaves: list   # the leaf of keys[i]
     max_nodes: int  # the longest proof
@@ -262,14 +300,15 @@ class SweepWorld:
             yield self.entries(idx)
 
 
-def sweep_world(n_accounts: int = 65536, hasher=None) -> SweepWorld:
+def sweep_world(n_accounts: int = 65536, hasher=None,
+                prefix: bytes = b"sweep-acct-%d") -> SweepWorld:
     """Config 5's recipe (bench_configs.py:541-552): account i under key
-    keccak(b"sweep-acct-%d" % i) with leaf RLP [i + 1, 10**18 + i,
-    keccak(b"sr%d" % i), keccak(b"ch%d" % i)], hashed with `hasher` (the
-    native keccak by default)."""
+    keccak(prefix % i) with leaf RLP [i + 1, 10**18 + i, keccak(b"sr%d" %
+    i), keccak(b"ch%d" % i)], hashed with `hasher` (the native keccak by
+    default)."""
     nk = hasher or default_hasher()
     trie = EthTrie(hasher=nk)
-    keys = [nk(b"sweep-acct-%d" % i) for i in range(n_accounts)]
+    keys = [nk(prefix % i) for i in range(n_accounts)]
     leaves = [rlp.encode([rlp.int_to_min_bytes(i + 1), rlp.int_to_min_bytes(10**18 + i),
                           nk(b"sr%d" % i), nk(b"ch%d" % i)]) for i in range(n_accounts)]
     for k, leaf in zip(keys, leaves):
@@ -277,3 +316,11 @@ def sweep_world(n_accounts: int = 65536, hasher=None) -> SweepWorld:
     proofs = [trie.get_proof(k) for k in keys]
     return SweepWorld(trie=trie, root=trie.root_hash(), keys=keys, proofs=proofs, leaves=leaves,
                       max_nodes=max(len(p) for p in proofs))
+
+
+def distinct_world(n_accounts: int = 1 << 20) -> SweepWorld:
+    """Config 6's recipe (bench_configs.py:687-705): config 5's with keys
+    keccak(b"m-acct-%d" % i), 2^20 fully distinct accounts by default.
+    Its witness is `pack()` (longest proof first, at node_len 576);
+    `leaves[depth_order()[r]]` is the value of row r."""
+    return sweep_world(n_accounts, prefix=b"m-acct-%d")
