@@ -165,7 +165,15 @@ Phases, each printing a line:
      plain keccak; epoch_batch on the first window, the first window past
      byte 2^31 of the node table and the last window against the plain
      walk; K1 over the pool and K2 `hinted` alone on the first window
-     timed.
+     timed;
+ 21. the benchmark programs (zk_state_proofs_tpu_torch/bench/), each in its
+     own process as `python -m zk_state_proofs_tpu_torch.bench.<module>`:
+     the headline at full width (4096 distinct accounts, the 512-account
+     hot trie, the 256-epoch resident sweep, K1's rates by block count and
+     on the real pool), configs 1-6 at --quick size and one short A/B pair
+     of K2's hint modes and of K1's pool hashing; every JSON line ok, every
+     proof FOUND, the accumulators checked, the lines printed, their
+     launches counted as the `bench` path.
 
 K1 is a warp per message and K2 a warp per proof over a shared-memory slab
 (csrc/keccak.cu, csrc/mpt_walk.cu); K2's `exact` re-run is decided on the
@@ -200,6 +208,10 @@ try:
     import torch.distributed as dist
 
     from zk_state_proofs_tpu_torch import native
+    from zk_state_proofs_tpu_torch.bench.common import (HBM_BYTES_PER_S, INT32_OPS_PER_S,
+                                                        card_info, keccak_bound, least_time,
+                                                        read_counts, seg_offsets, walk_bound,
+                                                        zero_counts)
     from zk_state_proofs_tpu_torch.__main__ import main as cli_main
     from zk_state_proofs_tpu_torch.entry import dryrun_multichip
     from zk_state_proofs_tpu_torch.models import (BatchVerifier, decode_receipt_value,
@@ -276,24 +288,14 @@ INT32_BYTES = 1 << 31     # a byte offset past the int32 range
 # windows of this script's runs (fewer kernels than launched), so device
 # times come from CUDA events around calls queued behind a spin kernel.
 DEVICE_TIMING = "CUDA events, 20 calls queued behind a spin kernel"
-
-# The least time a kernel could take (`bound_ms`): the larger of its bytes
-# over the memory rate and its operations over the ALU rate.
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# 32-bit integer operations: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
-# (Hopper SM; the float32 rate of 67 TFLOP/s counts 128 lanes and FMA as 2).
-# Keccak's operations are LOP3 and SHF, which issue only on the integer ALU
-# pipe; the FMA pipe's IMAD executes neither, so it does not raise this rate.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# per absorbed rate block, in 32-bit instructions as the card can issue them
-# (three-input LOP3, one funnel shift per half of a 64-bit rotate), 24 rounds
-# of: theta 80 (each column's 5-way XOR 2 LOP3 per half = 20, rot1 of the 5
-# column sums 10 SHF, D folded into one 3-way XOR per lane half = 50); rho
-# and pi 48 (24 rotates, none by 0 or 32); chi 50 (b ^ (~c & d) is one LOP3
-# per lane half); iota 2. Plus the absorb: 17 lanes x 2 XOR.
-KECCAK_OPS_PER_BLOCK = 24 * (80 + 48 + 50 + 2) + 17 * 2
-# per walked node, a floor: 18 RLP header decodes of 16 operations each
-WALK_OPS_PER_NODE = 18 * 16
+# phase 21: the benchmark programs, each run as a user runs it, in its own
+# process: the headline at full width, configs 1-6 at --quick size, one
+# short A/B pair of each harness
+BENCH_RUNS = (("headline", ()), ("configs", ("--quick",)),
+              ("ab", ("--walk", "hinted", "hinted1", "--keccak", "base", "seg", "--reps", "1")))
+BENCH_TIMEOUT_S = 300     # each bench program's limit
+CONFIG_NAMES = ("single_tx_proof", "account_storage_proof", "full_receipt_trie",
+                "mixed_batch_4096", "sweep_with_root_reduction", "distinct_1m_resident")
 DEVICE = "cuda"
 
 
@@ -332,15 +334,6 @@ def stamp(label: str) -> None:
     _CLOCK["last"] = now
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
 def main() -> None:
     repo = os.path.dirname(os.path.abspath(__file__))
 
@@ -349,7 +342,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = card_info()["nvidia_smi"]
     log(card)
     log(f"[1 device] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; devices {torch.cuda.device_count()}")
@@ -661,14 +654,18 @@ def main() -> None:
     k1_err = max(k1_err, distinct["err"]["k1"])
     k2_err["hinted"] = max(k2_err["hinted"], distinct["err"]["k2"])
     stamp("phase 20 (config 6, 2^20 distinct accounts)")
+    torch.cuda.empty_cache()  # the bench processes allocate on the same card
+    bench = phase_bench(repo)
+    stamp("phase 21 (the bench programs)")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "zk_state_proofs_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
     # ---- the kernels line -------------------------------------------------
     # each main path's launches, counted from zero over its own run (phases
-    # 5, 9, 11, 12, 15, 16, 17, 18, 19 and 20; phase 17's are its
-    # world-size-1 run's and both spawned ranks'); `launches` is their sum.
+    # 5, 9, 11, 12, 15, 16, 17, 18, 19, 20 and 21; phase 17's are its
+    # world-size-1 run's and both spawned ranks', phase 21's the bench
+    # processes'); `launches` is their sum.
     # K2 `exact` also gives the guarded launches that walked (`walked`, the
     # device tally). K1 and K2 `hinted` also give their bounds at configs 4
     # and 6's shapes (`bound_ms_by_path`) and their times at config 6's
@@ -677,7 +674,8 @@ def main() -> None:
                "hint_modes": hm["launches"], "blocks": blk["launches"],
                "sweeps": swp["launches"], "roots_circuits": rc["launches"],
                "parallel": par["launches"], "cli": cli["launches"],
-               "mixed": mixed["launches"], "distinct_1m": distinct["launches"]}
+               "mixed": mixed["launches"], "distinct_1m": distinct["launches"],
+               "bench": bench["launches"]}
     src = "zk_state_proofs_tpu_torch/csrc/"
     kernels = [kernel_row(
         "keccak256", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:122",
@@ -1700,25 +1698,62 @@ def phase_distinct(card, dev):
             "ms": {"k1": k1_ms, "hinted": None if k2_us is None else k2_us / 1e3}}
 
 
-def zero_counts():
-    for k in keccak_cuda.LAUNCHES:
-        keccak_cuda.LAUNCHES[k] = 0
-    mpt_cuda.reset_counts()
+def run_bench(repo, module, args):
+    """`python -m zk_state_proofs_tpu_torch.bench.<module> *args` from the
+    checkout: exit 0 and JSON lines on stdout, each with ok true, or fail."""
+    out = subprocess.run([sys.executable, "-m", f"zk_state_proofs_tpu_torch.bench.{module}",
+                          *args], cwd=repo, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    check(out.returncode == 0, f"bench.{module} exited {out.returncode}: "
+                               f"{out.stderr.strip()[-3000:]}")
+    lines = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+    check(lines and all(x.get("ok") is True for x in lines),
+          f"bench.{module}: a line without ok true: {out.stdout.strip()[-3000:]}")
+    return lines
 
 
-def read_counts():
-    """Every kernel wrapper's launch count since zero_counts(), and the
-    guarded `exact` launches that walked (the device tally, one sync)."""
-    return {**keccak_cuda.LAUNCHES, **mpt_cuda.LAUNCHES,
-            "exact_walked": mpt_cuda.exact_walked(DEVICE)}
-
-
-def seg_offsets(segments):
-    offs, off = [], 0
-    for cnt, _ in segments:
-        offs.append(off)
-        off += cnt
-    return offs
+def phase_bench(repo):
+    """Phase 21: the benchmark programs (zk_state_proofs_tpu_torch/bench/),
+    each in its own process as a user runs it: the headline at full width
+    (4096 distinct, 512 hot, the 256-epoch resident sweep, K1's rates),
+    configs 1-6 at --quick size, one short A/B pair of each harness. Each
+    line ok, every proof FOUND, the accumulators checked (each program
+    raises otherwise); the lines printed; their kernel launches summed."""
+    lines = {m: run_bench(repo, m, args) for m, args in BENCH_RUNS}
+    (head,) = lines["headline"]
+    check("vs_baseline" not in head and head["value"] > 0 and head["device_proofs_per_sec"] > 0
+          and head["found"] == head["batch"] and head["hot_trie_found"] == head["hot_trie_batch"]
+          and head["resident_sweep_found"] == head["resident_sweep_proofs"]
+          and head["folded_calls"] > 0 and len(head["keccak_hashes_per_sec"]) == 4
+          and head["keccak_real_mix_hashes_per_sec"] > 0,
+          f"bench.headline: an unexpected line {head}")
+    cfg = {x["config"]: x for x in lines["configs"]}
+    check(tuple(cfg) == CONFIG_NAMES, f"bench.configs printed {list(cfg)}")
+    for name, got, want in (
+            ("single_tx_proof", "tx_geometry_found", "tx_geometry_batch"),
+            ("account_storage_proof", "grouped_found", "grouped_slot_proofs"),
+            ("mixed_batch_4096", "found", "batch"),
+            ("sweep_with_root_reduction", "found", "proofs"),
+            ("distinct_1m_resident", "found", "proofs")):
+        check(cfg[name][got] == cfg[name][want],
+              f"bench.configs {name}: {got} {cfg[name][got]} of {cfg[name][want]}")
+    check(cfg["sweep_with_root_reduction"]["root_ok"], "bench.configs: the receipt root differs")
+    check([x["ab"] for x in lines["ab"]] == ["walk", "keccak"]
+          and list(lines["ab"][0]["best_ms"]) == ["hinted", "hinted1"]
+          and list(lines["ab"][1]["best_ms"]) == ["base", "seg"],
+          f"bench.ab: unexpected lines {lines['ab']}")
+    launches = {}
+    for module, got in lines.items():
+        for x in got:
+            log(f"[21 {module}] {json.dumps(x)}")
+            for k, v in x["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    check(launches["guard"] == 0, "a bench program launched the guard kernel")
+    for name in ("keccak256", "hinted", "exact"):
+        check(launches[name] > 0, f"the bench programs launched the {name} kernel no time")
+    log(f"[21 bench] headline, configs --quick (6 lines) and ab: every line ok, every proof "
+        f"FOUND, the accumulators checked; launches {launches}")
+    return {"launches": launches}
 
 
 def kernel_row(name, source, replaces, by_path, counter, err, ms, plain_ms, bound):
@@ -1729,37 +1764,6 @@ def kernel_row(name, source, replaces, by_path, counter, err, ms, plain_ms, boun
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}  # no PyTorch call computes keccak or an MPT walk
-
-
-def least_time(nbytes, ops):
-    """(ms, "bytes" or "operations"): the larger of the two times."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def keccak_bound(lens, segments):
-    """Bound of hashing rows of these lengths in segments ((count, width),
-    ...): each row's first min(len, width) bytes read once, its length
-    read, its digest written."""
-    nbytes = ops = 0
-    for o, (c, w) in zip(seg_offsets(segments), segments):
-        ln = lens[o:o + c].to(torch.int64).clamp(min=0)
-        nbytes += int(ln.clamp(max=w).sum()) + 36 * c
-        ops += int((torch.div(ln, 136, rounding_mode="floor").clamp(max=w // 136) + 1).sum())
-    return least_time(nbytes, ops * KECCAK_OPS_PER_BLOCK)
-
-
-def walk_bound(nodes, node_lens, num_nodes, kn, max_value_len, hinted):
-    """Bound of walking these proofs: each live node's bytes, length and
-    digest (and hints) read once, the root, key and counts read, six words
-    and the value written; WALK_OPS_PER_NODE per live node."""
-    b, d, n = nodes.shape
-    live = torch.arange(d, device=nodes.device)[None] < num_nodes.clamp(0, d)[:, None]
-    n_live = int(live.sum())
-    nbytes = (int(node_lens.clamp(0, n)[live].sum()) + n_live * (36 + (36 if hinted else 0))
-              + b * (32 + kn + 8) + b * (24 + max_value_len))
-    return least_time(nbytes, n_live * WALK_OPS_PER_NODE)
 
 
 def storage_witness(dev):

@@ -3,8 +3,11 @@ verify_proofs_pooled (hints, depth segments, pool segments; config 4's
 mixed batch without hints or segments), the
 diagnostic reasons, the model entry points and BatchVerifier. Bit-exact."""
 
+import importlib.util
+import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,8 @@ from zk_state_proofs_tpu.witness import pack_proofs
 from zk_state_proofs_tpu.witness import synthetic_block as jax_synthetic_block
 from zk_state_proofs_tpu.witness.builders import (
     get_transaction_proof_input as jax_get_transaction_proof_input)
+from zk_state_proofs_tpu_torch.bench import headline
+from zk_state_proofs_tpu_torch.bench.common import Step
 from zk_state_proofs_tpu_torch.models import (BatchVerifier, batch_commitment,
                                               diagnose_batch,
                                               verify_account_batch,
@@ -77,6 +82,52 @@ def test_pooled_verify_matches_jax(headline_256):
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (np.asarray(want[0]) == tmpt.FOUND).all()
+    # the headline benchmark (bench.headline): its witness recipe gives
+    # bench.py's arrays, distinct and hot trie
+    jax_bench = _root_bench()
+    for n_accounts in (64, 16):
+        want, got = jax_bench.build_witness_batch(64, n_accounts), headline.build_witness_batch(
+            64, n_accounts)
+        for w, g in zip(want.astuple() + want.pool() + (want.pool_hints(),),
+                        got.astuple() + got.pool() + (got.pool_hints(),)):
+            np.testing.assert_array_equal(g, w)
+    # its timed step on the CPU from a fixed counter start: K = 2 calls,
+    # then one more, fold the same (acc, accv) as bench.py's step body over
+    # the JAX function's outputs on the same perturbed arrays
+    segs, psegs = got.depth_segments(tile=16), got.pool_block_segments(tile=16)
+    d = got.nodes.shape[1]
+    step = Step(headline.verify_call(packed_to_tensors(got, "cpu"), segs, psegs, d), 64, "cpu",
+                ctr=7)
+    nodes, (pool_nodes, *pool) = got.nodes.copy(), got.pool()
+    pool_nodes, hints = pool_nodes.copy(), got.pool_hints()
+    acc, accv = np.zeros(64, np.int32), np.zeros(64, np.int32)
+    for ctr, k in ((8, 0), (9, 2), (10, 1)):
+        nodes[..., -1] = pool_nodes[..., -1] = ctr
+        s, v, ln = (np.asarray(x) for x in jmpt.verify_proofs_pooled(
+            nodes, *got.astuple()[1:], pool_nodes, *pool, hints, max_value_len=128,
+            max_steps=d, conditional=False, depth_segments=segs, pool_segments=psegs))
+        acc += s
+        accv ^= v.astype(np.int32).sum(1, dtype=np.int32) ^ (ln << 8)
+        if k:
+            step.run(k)
+            np.testing.assert_array_equal(step.fold.acc.numpy(), acc)
+            np.testing.assert_array_equal(step.fold.accv.numpy(), accv)
+    assert step.ctr == 10 and (acc == 3 * tmpt.FOUND).all() and accv.any()
+
+
+def _root_bench():
+    """The JAX package's root bench.py as a module. Its import sets two JAX
+    compile-cache variables, which are taken back out of the environment."""
+    before = set(os.environ)
+    spec = importlib.util.spec_from_file_location(
+        "root_bench", Path(__file__).resolve().parents[1] / "bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        for key in set(os.environ) - before:
+            del os.environ[key]
+    return mod
 
 
 def _jax_config4_entries(total):
@@ -241,6 +292,9 @@ def test_import_loads_neither_jax_nor_cuda():
         "import zk_state_proofs_tpu_torch.models, zk_state_proofs_tpu_torch.witness_bridge\n"
         "import zk_state_proofs_tpu_torch.parallel, zk_state_proofs_tpu_torch.__main__\n"
         "import zk_state_proofs_tpu_torch.entry, zk_state_proofs_tpu_torch.witness.networks\n"
+        "import zk_state_proofs_tpu_torch.bench.common, zk_state_proofs_tpu_torch.bench.headline\n"
+        "import zk_state_proofs_tpu_torch.bench.configs, zk_state_proofs_tpu_torch.bench.scaling\n"
+        "import zk_state_proofs_tpu_torch.bench.ab\n"
         "import torch.distributed as dist\n"
         "assert not torch.cuda.is_initialized(), 'cuda initialised'\n"
         "assert not dist.is_initialized(), 'a process group was initialised'\n"
@@ -337,6 +391,15 @@ def test_cuda_device_without_card_raises():
 
     calls += [lambda: main(["selftest", "--txs", "2"]), lambda: make_mesh(),
               lambda: make_mesh(device="cuda")]
+    # the benchmark programs: their timers (on a CPU tensor or device too)
+    # and every module's main
+    from zk_state_proofs_tpu_torch.bench import ab, common, configs, scaling
+
+    for where in ("cuda", "cpu", torch.zeros(1)):
+        calls += [lambda w=where, t=timer: t(lambda i: None, 1, w)
+                  for timer in (common.wall_ms, common.device_ms, common.busy_profile)]
+    calls += [common.card_info, lambda: headline.main([]), lambda: configs.main(["--quick"]),
+              lambda: scaling.main([]), lambda: ab.main([])]
     for call in calls:
         with pytest.raises(RuntimeError):
             call()
