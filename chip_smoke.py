@@ -209,9 +209,10 @@ try:
 
     from zk_state_proofs_tpu_torch import native
     from zk_state_proofs_tpu_torch.bench.common import (HBM_BYTES_PER_S, INT32_OPS_PER_S,
-                                                        card_info, keccak_bound, least_time,
-                                                        read_counts, seg_offsets, walk_bound,
-                                                        zero_counts)
+                                                        Step, card_info, keccak_bound,
+                                                        least_time, perturb, pooled_call,
+                                                        read_counts, seg_offsets, value_word,
+                                                        walk_bound, wall_ms, zero_counts)
     from zk_state_proofs_tpu_torch.__main__ import main as cli_main
     from zk_state_proofs_tpu_torch.entry import dryrun_multichip
     from zk_state_proofs_tpu_torch.models import (BatchVerifier, decode_receipt_value,
@@ -525,35 +526,16 @@ def main() -> None:
     nodes, pnodes = batch[0], pool[0]
     # every value byte and length, folded per proof, as the headline request
     # returned them (same row order: entries are depth-sorted already)
-    value_fold = torch.from_numpy(
-        head.values.astype(np.int64).sum(1)
-        + (head.value_lens.astype(np.int64) << 8)).to(dev)
-    acc = torch.zeros(N_ACCOUNTS, dtype=torch.int64, device=dev)
-    accv = torch.zeros(N_ACCOUNTS, dtype=torch.int64, device=dev)
+    once = value_word(torch.from_numpy(head.values).to(dev),
+                      torch.from_numpy(head.value_lens).to(dev))
 
-    def pooled(i, kernels=True):
-        # distinct work per iteration: the last padding byte of every node
-        # row changes; results do not (bench.py's perturbation)
-        nodes[:, :, -1] = i & 0xFF
-        pnodes[:, -1] = i & 0xFF
-        if kernels:
-            s, v, l = mpt.verify_proofs_pooled(
-                *batch, *pool, ht["pool_hints"], max_value_len=128,
-                depth_segments=segs, pool_segments=psegs)
-        else:
-            s, v, l = plain_pooled(batch, pool, ht["pool_hints"], segs, psegs)
-        acc.add_(s)
-        accv.add_(v.to(torch.int64).sum(1) + (l.to(torch.int64) << 8))
+    def plain_call(ctr):
+        perturb(ctr, nodes, pnodes)
+        return plain_pooled(batch, pool, ht["pool_hints"], segs, psegs)
 
-    times = {}
-    for label, kern in (("plain", False), ("kernel", True), ("kernel2", True),
-                        ("plain2", False)):
-        acc.zero_()
-        accv.zero_()
-        times[label] = cuda_timer(lambda i: pooled(i, kern), TIMED_ITERS)
-        check(bool((acc == (TIMED_ITERS + 2) * mpt.FOUND).all())
-              and bool((accv == (TIMED_ITERS + 2) * value_fold).all()),
-              f"perturbed padding changed results ({label} path)")
+    times = time_paths({"kernel": pooled_call(ht, max_value_len=128, depth_segments=segs,
+                                              pool_segments=psegs),
+                        "plain": plain_call}, N_ACCOUNTS, once, "phase 6", dev)
     k_ms = min(times["kernel"], times["kernel2"])
     p_ms = min(times["plain"], times["plain2"])
     log(f"[6 time] pooled verify, {N_ACCOUNTS} proofs, kernel path "
@@ -1505,30 +1487,13 @@ def phase_mixed(card, dev):
     # distinct work per iteration: byte N - 1 of every node and pool row (a
     # padding byte: node_len is the largest node + 4) takes the counter;
     # every value byte and length folded into checked accumulators
-    nodes, pnodes = batch[0], pool[0]
-    value_fold = got[1].to(torch.int64).sum(1) + (got[2].to(torch.int64) << 8)
-    acc = torch.zeros(b, dtype=torch.int64, device=dev)
-    accv = torch.zeros(b, dtype=torch.int64, device=dev)
-
-    def call(i):
-        nodes[:, :, -1] = i & 0xFF
-        pnodes[:, -1] = i & 0xFF
-        s, v, ln = mpt.verify_proofs_pooled(*batch, *pool, max_value_len=128)
-        acc.add_(s)
-        accv.add_(v.to(torch.int64).sum(1) + (ln.to(torch.int64) << 8))
-
-    runs = []
-    for _ in range(2):
-        acc.zero_()
-        accv.zero_()
-        runs.append(cuda_timer(call, TIMED_ITERS))
-        check(bool((acc == (TIMED_ITERS + 2) * mpt.FOUND).all())
-              and bool((accv == (TIMED_ITERS + 2) * value_fold).all()),
-              "the perturbed padding changed the mixed batch's results")
+    step = Step(pooled_call(t, max_value_len=128), b, dev)
+    runs = step.timed(wall_ms, TIMED_ITERS, 2, value_word(*got[1:]),
+                      "the perturbed padding: the mixed batch")
     ms = min(runs)
     # device time from torch.profiler: a call's ~800 launches overflow the
     # launch queue behind a spin kernel (queued_timer), so the host blocks
-    prof = device_profile(call, 5)
+    prof = device_profile(step, 5)
     top = "; ".join(f"{nm[:40]} {t * 1e3:.1f} us x{c:.0f}" for nm, t, c in prof["top"])
     kn = batch[4].shape[1]
     bound = {"k1": keccak_bound(pool[1], ((pool[0].shape[0], n),)),
@@ -1725,6 +1690,8 @@ def phase_bench(repo):
           and head["found"] == head["batch"] and head["hot_trie_found"] == head["hot_trie_batch"]
           and head["resident_sweep_found"] == head["resident_sweep_proofs"]
           and head["folded_calls"] > 0 and len(head["keccak_hashes_per_sec"]) == 4
+          and head["window_proofs_per_sec"] > 0 and head["bare_ms_per_batch"] > 0
+          and head["bare_device_ms_per_batch"] > 0
           and head["keccak_real_mix_hashes_per_sec"] > 0,
           f"bench.headline: an unexpected line {head}")
     cfg = {x["config"]: x for x in lines["configs"]}
@@ -1754,6 +1721,22 @@ def phase_bench(repo):
     log(f"[21 bench] headline, configs --quick (6 lines) and ab: every line ok, every proof "
         f"FOUND, the accumulators checked; launches {launches}")
     return {"launches": launches}
+
+
+def time_paths(calls, rows, once, what, dev, iters=None):
+    """CUDA events around back-to-back steps (bench.common.Step: the counter
+    into the padding, each call's status and value word folded) of each
+    path's call(ctr), in turns plain, kernel, kernel, plain; after each run
+    every proof FOUND in every call and the values those of `once`, or
+    raise. calls: {"kernel": call, "plain": call}; iters by path (default
+    TIMED_ITERS). Returns each run's ms by label."""
+    steps = {path: Step(call, rows, dev) for path, call in calls.items()}
+    times = {}
+    for label in ("plain", "kernel", "kernel2", "plain2"):
+        path = label.rstrip("2")
+        (times[label],) = steps[path].timed(wall_ms, (iters or {}).get(path, TIMED_ITERS), 1,
+                                            once, f"the perturbed padding: {what} ({label} path)")
+    return times
 
 
 def kernel_row(name, source, replaces, by_path, counter, err, ms, plain_ms, bound):
@@ -2014,36 +1997,31 @@ def phase_storage(sw, card, dev):
     slots36[:, :32] = sw["slots"]
     args36 = core_args[:7] + (slots36, sw["sa"])
     bal = torch.from_numpy(res.balance.astype(np.int64).sum(1)).to(dev)
-    fold = torch.from_numpy(res.slot_values.astype(np.int64).sum(1)
-                            + (res.slot_value_lens.astype(np.int64) << 8)).to(dev)
+    once = value_word(torch.from_numpy(res.slot_values).to(dev),
+                      torch.from_numpy(res.slot_value_lens).to(dev))
     acc_a = torch.zeros(n_acc, dtype=torch.int64, device=dev)
-    acc_s = torch.zeros(n_slots, dtype=torch.int64, device=dev)
-    accv = torch.zeros(n_slots, dtype=torch.int64, device=dev)
 
-    def storage_iter(i, kernels):
-        # distinct work per iteration: the last padding byte of every node
-        # row and slot changes; results do not (bench_configs.py's recipe)
-        p = i & 0xFF
-        for t in (at, st):
-            t["nodes"][:, :, -1] = p
-            t["pool_nodes"][:, -1] = p
-        slots36[:, -1] = p
-        a_st, acct, s_st, s_v, s_vl = (_storage_core_grouped if kernels
-                                       else plain_storage)(*args36)
-        acc_a.add_(a_st + acct["balance"].to(torch.int64).sum(1))
-        acc_s.add_(s_st)
-        accv.add_(s_v.to(torch.int64).sum(1) + (s_vl.to(torch.int64) << 8))
+    def storage_call(kernels):
+        def call(ctr):
+            # distinct work per iteration: the last padding byte of every
+            # node row and slot changes; results do not (bench_configs.py's
+            # recipe)
+            perturb(ctr, at["nodes"], at["pool_nodes"], st["nodes"], st["pool_nodes"], slots36)
+            a_st, acct, s_st, s_v, s_vl = (_storage_core_grouped if kernels
+                                           else plain_storage)(*args36)
+            acc_a.add_(a_st).add_(acct["balance"].sum(1, dtype=torch.int64))
+            return s_st, s_v, s_vl
+        return Step(call, n_slots, dev)
 
+    steps = {"kernel": storage_call(True), "plain": storage_call(False)}
     times = {}
-    for label, kern in (("plain", False), ("kernel", True), ("kernel2", True),
-                        ("plain2", False)):
-        for x in (acc_a, acc_s, accv):
-            x.zero_()
-        times[label] = cuda_timer(lambda i: storage_iter(i, kern), TIMED_ITERS)
-        n = TIMED_ITERS + 2
-        check(bool((acc_s == n * mpt.FOUND).all()) and bool((acc_a == n * (mpt.FOUND + bal)).all())
-              and bool((accv == n * fold).all()),
-              f"perturbed padding changed the storage results ({label} path)")
+    for label in ("plain", "kernel", "kernel2", "plain2"):
+        acc_a.zero_()
+        step = steps[label.rstrip("2")]
+        (times[label],) = step.timed(wall_ms, TIMED_ITERS, 1, once,
+                                     f"the perturbed padding: storage ({label} path)")
+        check(bool((acc_a == step.fold.calls * (mpt.FOUND + bal)).all()),
+              f"perturbed padding changed the storage account results ({label} path)")
     k_ms = min(times["kernel"], times["kernel2"])
     p_ms = min(times["plain"], times["plain2"])
     log(f"[10 time] grouped storage verify, {n_acc} accounts + {n_slots} slots: "
@@ -2374,31 +2352,15 @@ def phase_block_timings(head, txw, tx_result, card):
     hints = txw["t"]["pool_hints"]
     nodes, pnodes = batch[0], pool[0]
     n_proofs, mvl, steps = geo.packed.batch, geo.max_value_len, geo.max_steps
-    _, v0, l0 = tx_result
-    fold = v0.to(torch.int64).sum(1) + (l0.to(torch.int64) << 8)
-    acc = torch.zeros_like(fold)
-    accv = torch.zeros_like(fold)
+    kw = dict(max_value_len=mvl, max_steps=steps)
 
-    def pooled(i, kernels):
-        # distinct work per iteration: the last padding byte of every node
-        # row changes; results do not
-        nodes[:, :, -1] = i & 0xFF
-        pnodes[:, -1] = i & 0xFF
-        fn = mpt.verify_proofs_pooled if kernels else plain_pooled
-        kw = dict(max_value_len=mvl, max_steps=steps)
-        s, v, l = fn(*batch, *pool, hints, **kw) if kernels else fn(batch, pool, hints, **kw)
-        acc.add_(s)
-        accv.add_(v.to(torch.int64).sum(1) + (l.to(torch.int64) << 8))
+    def plain_call(ctr):
+        perturb(ctr, nodes, pnodes)
+        return plain_pooled(batch, pool, hints, **kw)
 
-    times = {}
-    for label, kern, iters in (("plain", False, PLAIN_ITERS), ("kernel", True, TIMED_ITERS),
-                               ("kernel2", True, TIMED_ITERS), ("plain2", False, PLAIN_ITERS)):
-        acc.zero_()
-        accv.zero_()
-        times[label] = cuda_timer(lambda i: pooled(i, kern), iters)
-        check(bool((acc == (iters + 2) * mpt.FOUND).all())
-              and bool((accv == (iters + 2) * fold).all()),
-              f"perturbed padding changed the transaction-geometry results ({label} path)")
+    times = time_paths({"kernel": pooled_call(txw["t"], **kw), "plain": plain_call}, n_proofs,
+                       value_word(*tx_result[1:]), "phase 13", nodes.device,
+                       iters={"plain": PLAIN_ITERS})
     k_ms = min(times["kernel"], times["kernel2"])
     p_ms = min(times["plain"], times["plain2"])
     log(f"[13 time] pooled verify at transaction geometry, {n_proofs} proofs "

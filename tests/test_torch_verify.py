@@ -24,7 +24,7 @@ from zk_state_proofs_tpu.witness import synthetic_block as jax_synthetic_block
 from zk_state_proofs_tpu.witness.builders import (
     get_transaction_proof_input as jax_get_transaction_proof_input)
 from zk_state_proofs_tpu_torch.bench import headline
-from zk_state_proofs_tpu_torch.bench.common import Step
+from zk_state_proofs_tpu_torch.bench.common import HashStep, Step, pooled_call, value_word
 from zk_state_proofs_tpu_torch.models import (BatchVerifier, batch_commitment,
                                               diagnose_batch,
                                               verify_account_batch,
@@ -33,6 +33,7 @@ from zk_state_proofs_tpu_torch.models import (BatchVerifier, batch_commitment,
                                               verify_storage_batch,
                                               verify_storage_grouped)
 from zk_state_proofs_tpu_torch.oracle import MissingKeyError, TrieError
+from zk_state_proofs_tpu_torch.ops import keccak_cuda
 from zk_state_proofs_tpu_torch.ops import mpt as tmpt
 from zk_state_proofs_tpu_torch.utils.config import BucketConfig
 from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, POOL_FIELDS,
@@ -91,28 +92,53 @@ def test_pooled_verify_matches_jax(headline_256):
         for w, g in zip(want.astuple() + want.pool() + (want.pool_hints(),),
                         got.astuple() + got.pool() + (got.pool_hints(),)):
             np.testing.assert_array_equal(g, w)
-    # its timed step on the CPU from a fixed counter start: K = 2 calls,
-    # then one more, fold the same (acc, accv) as bench.py's step body over
-    # the JAX function's outputs on the same perturbed arrays
+    # its timed step on the CPU from a fixed counter start: each call's
+    # status, values and lengths equal the JAX function's on the same
+    # perturbed arrays, and K = 2 steps, then one more, fold the same
+    # (acc, accv) as the additive fold over the JAX outputs
     segs, psegs = got.depth_segments(tile=16), got.pool_block_segments(tile=16)
     d = got.nodes.shape[1]
-    step = Step(headline.verify_call(packed_to_tensors(got, "cpu"), segs, psegs, d), 64, "cpu",
-                ctr=7)
+    call = pooled_call(packed_to_tensors(got, "cpu"), max_value_len=128, max_steps=d,
+                       depth_segments=segs, pool_segments=psegs)
+    step = Step(call, 64, "cpu", ctr=7)
     nodes, (pool_nodes, *pool) = got.nodes.copy(), got.pool()
     pool_nodes, hints = pool_nodes.copy(), got.pool_hints()
-    acc, accv = np.zeros(64, np.int32), np.zeros(64, np.int32)
+    acc, accv = np.zeros(64, np.int64), np.zeros(64, np.int64)
     for ctr, k in ((8, 0), (9, 2), (10, 1)):
         nodes[..., -1] = pool_nodes[..., -1] = ctr
         s, v, ln = (np.asarray(x) for x in jmpt.verify_proofs_pooled(
             nodes, *got.astuple()[1:], pool_nodes, *pool, hints, max_value_len=128,
             max_steps=d, conditional=False, depth_segments=segs, pool_segments=psegs))
+        for g, w in zip(call(ctr), (s, v, ln)):
+            np.testing.assert_array_equal(g.numpy(), w)
         acc += s
-        accv ^= v.astype(np.int32).sum(1, dtype=np.int32) ^ (ln << 8)
+        accv += v.sum(1, dtype=np.int64) + (ln.astype(np.int64) << 8)
         if k:
             step.run(k)
             np.testing.assert_array_equal(step.fold.acc.numpy(), acc)
             np.testing.assert_array_equal(step.fold.accv.numpy(), accv)
-    assert step.ctr == 10 and (acc == 3 * tmpt.FOUND).all() and accv.any()
+    assert step.ctr == 10 and (acc == 3 * tmpt.FOUND).all()
+    once = value_word(torch.tensor(v), torch.tensor(ln))
+    step.fold.check(once, "the CPU step")
+    step.fold.accv[0] += 1  # one value byte off in one call
+    with pytest.raises(RuntimeError):
+        step.fold.check(once, "a changed value")
+    # the K1 step: call k writes k into the last byte of every row; the
+    # digests it keeps are the oracle's of those rows, and check() refuses
+    # digests of other rows
+    rows = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (6, 140), np.uint8))
+    lens = torch.full((6,), 140, dtype=torch.int32)
+    hs = HashStep(lambda r: keccak_cuda.keccak256_cuda(r, lens), rows, lens, -1)
+    hs(), hs()
+    for k, dig in enumerate(hs.kept, 1):
+        want = rows.numpy().copy()
+        want[:, -1] = k
+        assert [bytes(x) for x in dig.numpy()] == [keccak256(bytes(r)) for r in want]
+    hs.check("K1 on the CPU")
+    hs = HashStep(lambda r: keccak_cuda.keccak256_cuda(r.flip(0), lens), rows, lens, -1)
+    hs()
+    with pytest.raises(RuntimeError):
+        hs.check("K1 over the wrong rows")
 
 
 def _root_bench():

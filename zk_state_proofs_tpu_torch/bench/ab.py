@@ -3,7 +3,7 @@ counterpart of the JAX package's `analysis/ab_walk.py` (`:1-140`) and
 `analysis/ab_keccak.py` (`:1-201`).
 
     python -m zk_state_proofs_tpu_torch.bench.ab [--walk V ...] [--keccak V ...]
-                                                 [--reps N] [--batch N] [--seed N]
+                                                 [--reps N]
 
   walk     verify_proofs_pooled on the headline batch (bench.headline,
            4096 distinct accounts) in K2's hint modes. A variant joins parts
@@ -18,7 +18,9 @@ counterpart of the JAX package's `analysis/ab_walk.py` (`:1-140`) and
                       own width (PackedProofs.pool_block_segments(tile=1));
              pad128k  the pool tiled to 131,072 rows at the bucket width.
            Each call writes a counter into byte 0 of every row; seg's and
-           base's digests are held equal, and base against the plain keccak.
+           base's digests are held equal, and base against the plain keccak;
+           every timed call's first digests are held against the plain
+           keccak of its rows (bench.common.HashStep).
 
 Device time a call from CUDA events around calls queued behind a spin
 kernel (bench.common.device_ms), the variants in turns: forward then
@@ -41,23 +43,13 @@ import torch
 from ..ops import keccak, keccak_cuda, mpt
 from ..ops.mpt import HINT_MODES
 from ..witness_bridge import packed_to_tensors
-from .common import (Step, card_info, device_ms, emit, log, pooled_call, read_counts, require,
-                     require_card, value_word, zero_counts)
+from .common import (HashStep, Step, card_info, device_ms, emit, in_turns, log, pooled_call,
+                     read_counts, require, require_card, value_word, zero_counts)
 from .headline import BATCH, build_witness_batch
 
-ITERS = 11     # calls queued a timed run (odd: see Fold.check)
+ITERS = 11     # calls queued a timed run
 PAD_ROWS = 131072
 KECCAK_VARIANTS = ("base", "tight", "seg", "pad128k")
-
-
-def in_turns(fns: dict, reps: int) -> dict:
-    """Each fn() is one timed run (ms); the variants run forward then
-    backward in every rep. Returns every variant's runs."""
-    runs = {v: [] for v in fns}
-    for _ in range(reps):
-        for v in list(fns) + list(fns)[::-1]:
-            runs[v].append(fns[v]())
-    return runs
 
 
 def walk_variant(packed, t, variant: str):
@@ -76,17 +68,17 @@ def walk_variant(packed, t, variant: str):
     return pooled_call(t, max_value_len=128, max_steps=packed.nodes.shape[1], **kw)
 
 
-def ab_walk(packed, variants, reps: int, seed: int, dev) -> dict:
+def ab_walk(packed, variants, reps: int, dev) -> dict:
     t = packed_to_tensors(packed, dev)
     timed = {}
     for v in variants:
         call = walk_variant(packed, t, v)
         status, values, lens = call(0)
         require(bool((status == mpt.FOUND).all()), f"[{v}] a proof not FOUND")
-        step, once = Step(call, packed.batch, dev, ctr=seed), value_word(values, lens)
+        step, once = Step(call, packed.batch, dev), value_word(values, lens)
         timed[v] = lambda step=step, once=once, v=v: step.timed(
             device_ms, ITERS, 1, once, f"walk [{v}]")[0]
-    runs = in_turns(timed, reps)
+    runs = in_turns(timed, 2 * reps)
     for v, r in runs.items():
         log(f"walk [{v}]: best {min(r):.4f} ms/batch ({packed.batch / min(r) * 1e3:,.0f} "
             f"proofs/s), runs {[round(x, 4) for x in r]}")
@@ -94,18 +86,19 @@ def ab_walk(packed, variants, reps: int, seed: int, dev) -> dict:
 
 
 def keccak_variant(pn, pl, variant: str, psegs):
-    """(rows, fn(rows) -> digests) for one `ab_keccak.py` variant (`:114-151`)."""
+    """(rows, lens, fn(rows) -> digests) for one `ab_keccak.py` variant
+    (`:114-151`)."""
     if variant == "base":
-        return pn, lambda d: keccak_cuda.keccak256_cuda(d, pl)
+        return pn, pl, lambda d: keccak_cuda.keccak256_cuda(d, pl)
     if variant == "tight":
         w = -(-int(pl.max()) // 8) * 8
-        return pn[:, :w].contiguous(), lambda d: keccak_cuda.keccak256_cuda(d, pl)
+        return pn[:, :w].contiguous(), pl, lambda d: keccak_cuda.keccak256_cuda(d, pl)
     if variant == "seg":
-        return pn, lambda d: mpt._hash_pool_rows(d, pl, psegs)
+        return pn, pl, lambda d: mpt._hash_pool_rows(d, pl, psegs)
     if variant == "pad128k":
         reps = -(-PAD_ROWS // pn.shape[0])
         lens = pl.repeat(reps)[:PAD_ROWS].contiguous()
-        return (pn.repeat(reps, 1)[:PAD_ROWS].contiguous(),
+        return (pn.repeat(reps, 1)[:PAD_ROWS].contiguous(), lens,
                 lambda d: keccak_cuda.keccak256_cuda(d, lens))
     raise ValueError(f"keccak variant {variant!r}: one of {KECCAK_VARIANTS}")
 
@@ -121,22 +114,16 @@ def ab_keccak(packed, variants, reps: int, dev) -> dict:
             "the segmented pool hash differs from one launch")
     timed, rows = {}, {}
     for v in variants:
-        data, fn = keccak_variant(pn.clone(), pl, v, psegs)
+        data, lens, fn = keccak_variant(pn.clone(), pl, v, psegs)
         rows[v] = data.shape[0]
-        acc = torch.zeros(data.shape[0], dtype=torch.int32, device=dev)
-        ctr = [0]
+        step = HashStep(fn, data, lens, 0)
 
-        def call(_i, data=data, fn=fn, acc=acc, ctr=ctr):
-            ctr[0] += 1
-            data[:, 0] = ctr[0] & 0xFF
-            acc.bitwise_xor_(fn(data)[:, 0].to(torch.int32))
-
-        def run(call=call, acc=acc):
-            ms = device_ms(call, ITERS, dev)
-            acc.cpu()  # the host reads the fold
+        def run(step=step, v=v):
+            ms = device_ms(step, ITERS, dev)
+            step.check(f"keccak [{v}]")
             return ms
         timed[v] = run
-    runs = in_turns(timed, reps)
+    runs = in_turns(timed, 2 * reps)
     real = int((pool_lens > 0).sum())
     for v, r in runs.items():
         log(f"keccak [{v}]: best {min(r):.4f} ms/call over {rows[v]} rows "
@@ -151,18 +138,16 @@ def main(argv=None) -> int:
     ap.add_argument("--keccak", nargs="*", default=list(KECCAK_VARIANTS),
                     help="keccak variants (none: skip the keccak A/B)")
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--batch", type=int, default=BATCH)
-    ap.add_argument("--seed", type=int, default=0, help="the counter's start")
     args = ap.parse_args(argv)
     card = card_info()
     dev = require_card()
-    packed = build_witness_batch(args.batch, args.batch)
-    common = dict(batch=args.batch, iters=ITERS, reps=args.reps, seed=args.seed,
+    packed = build_witness_batch(BATCH, BATCH)
+    common = dict(batch=BATCH, iters=ITERS, reps=args.reps,
                   timing="device ms a call, CUDA events behind a spin, in turns A B B A",
                   card=card["nvidia_smi"], device={"kind": card["kind"], "count": card["count"]})
     if args.walk:
         zero_counts()
-        runs = ab_walk(packed, args.walk, args.reps, args.seed, dev)
+        runs = ab_walk(packed, args.walk, args.reps, dev)
         emit(ab="walk", best_ms={v: min(r) for v, r in runs.items()}, runs=runs, **common,
              launches=read_counts(dev), ok=True)
     if args.keccak:

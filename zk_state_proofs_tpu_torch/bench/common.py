@@ -17,7 +17,7 @@ import sys
 
 import torch
 
-from ..ops import keccak_cuda, mpt, mpt_cuda
+from ..ops import keccak, keccak_cuda, mpt, mpt_cuda
 from ..utils.profiling import cuda_timer, device_profile, queued_timer
 from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS
 
@@ -42,6 +42,8 @@ RATE = 136  # Keccak-256's rate in bytes: a message of L bytes absorbs L // 136 
 # queued_timer's spin before the queued calls, in clock cycles (about 0.2 s):
 # the host must queue every timed call within half of it
 SPIN_CYCLES = 400_000_000
+# rows of each timed K1 call held against the plain keccak (HashStep)
+PLAIN_ROWS = 1024
 
 
 def log(msg: str) -> None:
@@ -96,19 +98,20 @@ def perturb(ctr: int, *tables) -> None:
 
 
 def value_word(values, lens):
-    """One call's per-proof value word: the sum of its value bytes, XOR its
-    length << 8 (i32 [B])."""
-    return values.to(torch.int32).sum(1, dtype=torch.int32) ^ (lens.to(torch.int32) << 8)
+    """One call's per-proof value word: the sum of its value bytes plus its
+    length << 8 (i64 [B])."""
+    return values.sum(1, dtype=torch.int64) + (lens.to(torch.int64) << 8)
 
 
 class Fold:
-    """bench.py's accumulators (`bench.py:150-160`) on the batch's device, in
-    int32 as the JAX step keeps them: acc += status, accv ^= the value word
-    of every value byte and length. `calls` counts the folded calls."""
+    """bench.py's accumulators (`bench.py:150-160`) on the batch's device,
+    folded by addition in int64 (bench.py XORs, which two equal calls
+    cancel): acc += status, accv += the value word of every value byte and
+    length. `calls` counts the folded calls."""
 
     def __init__(self, rows: int, device):
-        self.acc = torch.zeros(rows, dtype=torch.int32, device=device)
-        self.accv = torch.zeros(rows, dtype=torch.int32, device=device)
+        self.acc = torch.zeros(rows, dtype=torch.int64, device=device)
+        self.accv = torch.zeros(rows, dtype=torch.int64, device=device)
         self.calls = 0
 
     def zero(self) -> None:
@@ -117,31 +120,36 @@ class Fold:
         self.calls = 0
 
     def add(self, status, values, lens) -> None:
-        self.acc += status
-        self.accv ^= value_word(values, lens)
+        self.acc.add_(status)
+        self.accv.add_(values.sum(1, dtype=torch.int64)).add_(lens, alpha=256)
         self.calls += 1
 
     def check(self, once, what: str) -> None:
         """Read the accumulators (one host read) and raise unless every
         proof was FOUND in every folded call and the value fold equals
-        `once` (one call's value_word) folded `calls` times: `once` for an
-        odd count, 0 for an even one."""
+        `calls` times `once` (one call's value_word)."""
         acc, accv = self.acc.cpu(), self.accv.cpu()
         require(bool((acc == self.calls * mpt.FOUND).all()),
                 f"{what}: {int((acc != self.calls * mpt.FOUND).sum())} proofs were not FOUND "
                 f"in each of {self.calls} calls")
-        want = once.cpu() if self.calls % 2 else torch.zeros_like(accv)
-        require(torch.equal(accv, want), f"{what}: the values changed under the perturbation")
+        require(torch.equal(accv, self.calls * once.cpu()),
+                f"{what}: the values changed under the perturbation")
+
+
+def pooled_args(t: dict) -> list:
+    """verify_proofs_pooled's positional tensors from `t`
+    (witness_bridge.packed_to_tensors), with its pool hints where it has
+    them."""
+    return [t[k] for k in BATCH_FIELDS + POOL_FIELDS] + (
+        [t["pool_hints"]] if "pool_hints" in t else [])
 
 
 def pooled_call(t: dict, **kw):
     """call(ctr) over the tensors `t` (witness_bridge.packed_to_tensors):
     the counter into the last byte of every node and pool row, then
-    verify_proofs_pooled(**kw), with t's pool hints where it has them.
-    Returns (status, values, value_lens). Counter 0 leaves the rows as
-    packed."""
-    args = [t[k] for k in BATCH_FIELDS + POOL_FIELDS] + (
-        [t["pool_hints"]] if "pool_hints" in t else [])
+    verify_proofs_pooled(**kw) over pooled_args(t). Returns (status,
+    values, value_lens). Counter 0 leaves the rows as packed."""
+    args = pooled_args(t)
 
     def call(ctr):
         perturb(ctr, t["nodes"], t["pool_nodes"])
@@ -179,6 +187,47 @@ class Step:
             runs.append(timer(self, iters, self.fold.acc.device))
             self.fold.check(once, f"{what} run {rep}")
         return runs
+
+
+class HashStep:
+    """bench.py's K1 step: each call writes the next counter into byte
+    `byte` of every row of `rows`, runs fn(rows) (u8 [R, 32] digests) and
+    keeps the first PLAIN_ROWS digests. check() holds every kept call's
+    digests against the plain keccak of its own rows, in one plain call.
+    Takes (and ignores) the iteration index the timers pass."""
+
+    def __init__(self, fn, rows, lens, byte: int):
+        self.fn, self.rows, self.lens, self.byte = fn, rows, lens, byte
+        self.n = min(PLAIN_ROWS, rows.shape[0])
+        self.kept = []
+
+    def __call__(self, _i=None) -> None:
+        self.rows[:, self.byte] = (len(self.kept) + 1) & 0xFF
+        self.kept.append(self.fn(self.rows)[:self.n].clone())
+
+    def check(self, what: str) -> None:
+        """Raise unless every kept call's digests equal the plain keccak's;
+        forget them."""
+        k = len(self.kept)
+        require(k > 0, f"{what}: no call to check")
+        sample = self.rows[:self.n].repeat(k, 1)
+        sample.view(k, self.n, -1)[:, :, self.byte] = (
+            torch.arange(1, k + 1, device=sample.device) & 0xFF).to(torch.uint8)[:, None]
+        want = keccak.keccak256(sample, self.lens[:self.n].repeat(k))
+        require(torch.equal(torch.cat(self.kept), want),
+                f"{what}: a timed call's digests differ from the plain keccak")
+        self.kept.clear()
+
+
+def in_turns(fns: dict, runs: int) -> dict:
+    """`runs` timed runs of each fn() (ms), the variants forward in even
+    turns and backward in odd ones (A B, B A, ...). Returns every
+    variant's runs."""
+    out = {v: [] for v in fns}
+    for k in range(runs):
+        for v in list(fns)[::1 if k % 2 == 0 else -1]:
+            out[v].append(fns[v]())
+    return out
 
 
 # ---- timers (the card only) ----------------------------------------------

@@ -63,7 +63,7 @@ from ..witness_bridge import (BATCH_FIELDS, POOL_FIELDS, default_hasher, distinc
 from .common import (Step, busy_profile, card_info, emit, log, perturb, pooled_call,
                      read_counts, require, require_card, value_word, wall_ms, zero_counts)
 
-ITERS = 9   # back-to-back calls a timed rep (odd: see Fold.check)
+ITERS = 9   # back-to-back calls a timed rep
 REPS = 3
 
 
@@ -153,7 +153,7 @@ def _grouped_storage_batch(quick, seed, dev):
     slots[:, :32] = torch.from_numpy(w.slots).to(dev)
     sa = torch.from_numpy(w.slot_accounts).to(dev)
     # the account level's fold: each call adds its status and balance bytes
-    acc_a = torch.zeros(n_accounts, dtype=torch.int32, device=dev)
+    acc_a = torch.zeros(n_accounts, dtype=torch.int64, device=dev)
 
     def call(ctr):
         perturb(ctr, at["nodes"], at["pool_nodes"], st["nodes"], st["pool_nodes"], slots)
@@ -161,7 +161,7 @@ def _grouped_storage_batch(quick, seed, dev):
             [at[k] for k in BATCH_FIELDS], [at[k] for k in POOL_FIELDS], None,
             st["nodes"], st["node_lens"], st["num_nodes"], [st[k] for k in POOL_FIELDS],
             slots, sa)
-        acc_a.add_(a_st + acct["balance"].to(torch.int32).sum(1, dtype=torch.int32))
+        acc_a.add_(a_st).add_(acct["balance"].sum(1, dtype=torch.int64))
         return s_st, s_v, s_vl
 
     first = call(0)

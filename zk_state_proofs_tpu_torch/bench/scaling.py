@@ -2,7 +2,7 @@
 up to the card count. The port's counterpart of the JAX package's
 `bench_scaling.py` (`:1-125`).
 
-    python -m zk_state_proofs_tpu_torch.bench.scaling [--seed N]
+    python -m zk_state_proofs_tpu_torch.bench.scaling
 
 Each size n runs n processes, one card a rank, in one NCCL group
 (parallel.multihost.run_ranks). Every rank holds the same 4096-proof
@@ -38,12 +38,12 @@ from .common import Step, card_info, emit, log, perturb, require, value_word, wa
 from .headline import BATCH, build_witness_batch
 
 SWEEP_BATCHES = 8
-ITERS = 11   # back-to-back sharded calls a timed rep (odd: see Fold.check)
+ITERS = 11   # back-to-back sharded calls a timed rep
 REPS = 2
 RANK_TIMEOUT_S = 600
 
 
-def _rank(packed, seed):
+def _rank(packed):
     """One rank's share of a size's run (spawned by run_ranks)."""
     from ..parallel import make_mesh
     from ..parallel.mesh import make_sharded_verifier
@@ -65,7 +65,7 @@ def _rank(packed, seed):
 
     status, values, lens = call(0)
     require(bool((status == mpt.FOUND).all()), "sharded verify: a proof not FOUND")
-    runs = Step(call, packed.batch, dev, ctr=seed).timed(
+    runs = Step(call, packed.batch, dev).timed(
         wall_ms, ITERS, REPS, value_word(values, lens), f"rank {mesh.rank} sharded")
     return {"rank": mesh.rank, "device": str(dev), "sweep_proofs_per_sec": res.proofs_per_sec,
             "sweep_found": res.found, "sweep_total": res.total,
@@ -73,9 +73,7 @@ def _rank(packed, seed):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0, help="the counter's start")
-    args = ap.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
     card = card_info()
     ndev = torch.cuda.device_count()
     sizes = [n for n in (1, 2, 4, 8, 16, 32) if n <= ndev]
@@ -84,7 +82,7 @@ def main(argv=None) -> int:
     load_library()  # built once here, so that the ranks only load it
     results, base = {}, None
     for n in sizes:
-        ranks = run_ranks(_rank, n, "nccl", (packed, args.seed), timeout_s=RANK_TIMEOUT_S)
+        ranks = run_ranks(_rank, n, "nccl", (packed,), timeout_s=RANK_TIMEOUT_S)
         for r in ranks:
             require(r["sweep_found"] == r["sweep_total"], f"n={n} rank {r['rank']}: not FOUND")
         # every rank times the same calls; the slowest sets the rate
@@ -98,7 +96,7 @@ def main(argv=None) -> int:
     note = ("one card: only n = 1 ran, so there is no efficiency figure beyond it"
             if sizes == [1] else f"sizes {sizes} over {ndev} cards of one host")
     emit(metric="scaling_proofs_per_sec", devices=sizes, results=results, batch=BATCH,
-         sweep_batches=SWEEP_BATCHES, note=note, seed=args.seed, card=card["nvidia_smi"],
+         sweep_batches=SWEEP_BATCHES, note=note, card=card["nvidia_smi"],
          device={"kind": card["kind"], "count": card["count"]}, ok=True)
     return 0
 
