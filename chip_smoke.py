@@ -42,6 +42,8 @@ Phases, each printing a line:
   2. build: the kernels (csrc/*.cu) built from the checkout, one nvcc per
      source in parallel;
   3. K1 (keccak) against its plain version on the card, and the oracle;
+     the C++ host hasher (`native.keccak256_batch`) against K1 on every
+     row of the headline pool (fails if the native library is absent);
   4. K2 (MPT walk, modes hinted and exact) against its plain version on the
      card: the headline batch, an adversarial batch, corrupted hints; the
      `exact` re-run's flag folded into the first walk against guard_plain
@@ -86,8 +88,9 @@ Phases, each printing a line:
      to the plain path on the card;
  13. timings: the transaction-geometry pooled verify (kernel against plain
      path), a device-time A/B of the five hinted modes on the headline and
-     transaction-geometry batches, K1 on the transaction-geometry pool, and
-     the share of K2's value copy at that geometry;
+     transaction-geometry batches, K1 on the transaction-geometry pool (and
+     the C++ host hasher against K1 on every row of it, multi-block rows),
+     and the share of K2's value copy at that geometry;
  14. A/B of K1, K2 and K3 against the one-thread kernels that came before
      them (a thread per message, a thread per proof), on one card, in turns
      (old, new, new, old), device time from queued CUDA events: K2 in all
@@ -400,6 +403,7 @@ def main() -> None:
         check(bytes(dk_h[i]) == oracle_keccak(bytes(pn_h[i, :pl_h[i]])),
               f"K1 digest of pool row {i} differs from the oracle")
     check(k1_err == 0, f"K1 differs from its plain version (max abs err {k1_err})")
+    native_against_k1(pn_h, pl_h, dk_h, "[3 native]", "headline pool")
     log(f"[3 K1] keccak256 kernel == plain on edge lengths {edge} and the "
         f"{pn.shape[0]}-row headline pool (with and without segments); "
         f"oracle sample ok; max abs err 0")
@@ -2408,6 +2412,9 @@ def phase_block_timings(head, txw, tx_result, card):
         f"{mvl}-byte value copy, {us_text(copy[0])} without (max_value_len 0): the copy is "
         f"{share} of the walk's device time on {card}")
     pn, pl = pool[0], pool[1]
+    native_against_k1(pn.cpu().numpy(), pl.cpu().numpy(),
+                      mpt._hash_pool_rows(pn, pl).cpu().numpy(), "[13 native]",
+                      "transaction-geometry pool")
     k1_ms = cuda_timer(lambda i: mpt._hash_pool_rows(pn, pl), TIMED_ITERS)
     k1_us = device_us(lambda i: mpt._hash_pool_rows(pn, pl))
     k1_bound = keccak_bound(pl, ((pn.shape[0], pn.shape[1]),))
@@ -2417,6 +2424,26 @@ def phase_block_timings(head, txw, tx_result, card):
     tx_bound = walk_bound(*batch[:3], batch[4].shape[1], mvl, True)
     log(f"[13 bound] K2 hinted at transaction geometry: bound {tx_bound[0]:.5f} ms "
         f"({tx_bound[1]}); device {us_text(ab['transaction geometry']['hinted'])}")
+
+
+def native_against_k1(pool_nodes, pool_lens, k1_digests, tag, what):
+    """The C++ host hasher (`native.keccak256_batch`, one call of
+    zkp_keccak256_batch) on every pool row at its length, against K1's
+    digests of the same rows, byte for byte. Fails where the native library
+    did not build: the Python fallback must not stand in for it."""
+    lib = native.get_lib()
+    check(lib is not None and hasattr(lib, "zkp_keccak256_batch"),
+          f"{tag} the native host library (zkp_keccak256_batch) did not build")
+    msgs = [pool_nodes[i, :n].tobytes() for i, n in enumerate(pool_lens.tolist())]
+    t0 = time.perf_counter()
+    got = native.keccak256_batch(msgs)
+    host_s = time.perf_counter() - t0
+    bad = sum(g != d.tobytes() for g, d in zip(got, k1_digests))
+    check(len(got) == len(k1_digests) and bad == 0,
+          f"{tag} native.keccak256_batch differs from K1 on {bad} of {len(msgs)} rows")
+    log(f"{tag} native.keccak256_batch == K1 on the {what}: {len(msgs)} rows "
+        f"{tuple(pool_nodes.shape)}, {sum(len(m) for m in msgs)} bytes, mismatches {bad}; "
+        f"host call {host_s:.6f} s")
 
 
 def flagged_walk(mode, *args, hints=None):

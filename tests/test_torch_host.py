@@ -2,14 +2,19 @@
 witness modules, the trie planner, `native`) against the JAX package's,
 whose copies they are: identical packed arrays, pools, hints and segment schedules, identical
 digests, encodings, tries and proofs; disk caches that load in either
-package, and tampered ones that both refuse."""
+package, and tampered ones that both refuse. Also the port's public
+surface against the JAX package's, name by name (`NOT_PORTED`)."""
 
+import ast
+import io
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from zk_state_proofs_tpu import native as jax_native
 from zk_state_proofs_tpu import oracle as jax_oracle
 from zk_state_proofs_tpu.witness import PackedProofs as JaxPackedProofs
 from zk_state_proofs_tpu.witness import pack_proofs as jax_pack
@@ -25,6 +30,125 @@ from zk_state_proofs_tpu_torch.witness_bridge import account_entries, storage_wo
 torch.set_num_threads(1)
 
 ARRAYS = ("nodes", "node_lens", "num_nodes", "roots", "key_nibbles", "key_lens")
+REPO = Path(__file__).resolve().parent.parent
+
+# The JAX package's public surface that the port leaves out by choice, each
+# with its reason; ROADMAP queue 1 item 3 cites this dict. A key is a module
+# of zk_state_proofs_tpu/ that has no counterpart file, "module::name", or
+# "module::name(parameter)" (for `__all__`, "(parameter)" is a listed name).
+NOT_PORTED = {
+    "ops/keccak_pallas.py": "the Pallas keccak kernels (K1, K3); their counterparts "
+                            "are csrc/keccak.cu and ops/keccak_cuda.py",
+    "ops/mpt_pallas.py": "the Pallas walk kernel (K2) and its lax.cond re-run; their "
+                         "counterparts are csrc/mpt_walk.cu and ops/mpt_cuda.py",
+    "ops/select.py": "one-hot matmul fetches for a chip without a vector gather; the "
+                     "port uses plain indexed loads",
+    "ops/keccak.py::keccak_f1600(unroll)": "the unroll factor of XLA's fori_loop; the "
+                                           "port's 24 rounds are a Python loop",
+    "ops/rlp.py::decode_node_select(table)": "takes ops/select.py's one-hot word table; "
+                                             "the port indexes the bytes",
+    "ops/rlp.py::item_head": "a per-row helper that the JAX package vmaps; the port "
+                             "batches the same work",
+    "ops/rlp.py::node_items": "a per-row helper that the JAX package vmaps; the port "
+                              "batches the same work",
+    "ops/rlp.py::read_bytes32": "a per-row helper that the JAX package vmaps; the port "
+                                "batches the same work",
+    "ops/account.py::decode_account_one": "the per-row helper that decode_account "
+                                          "vmaps; the port decodes the batch at once",
+    **{f"ops/mpt.py::{fn}(conditional)":
+       "picks lax.cond or straight-line XLA for the exact re-run, with the same "
+       "results either way; the port decides the re-run on the card"
+       for fn in ("walk_batch", "verify_proofs", "verify_proofs_pooled",
+                  "verify_proofs_indexed", "verify_proofs_prehashed",
+                  "verify_proofs_pool_stream")},
+    "utils/profiling.py::tpu_trace": "jax.profiler's trace; the port's is "
+                                     "utils.profiling.cuda_trace",
+    "utils/__init__.py::tpu_trace": "jax.profiler's trace; the port's is cuda_trace",
+    "utils/__init__.py::__all__(tpu_trace)": "jax.profiler's trace; the port's is "
+                                             "cuda_trace",
+}
+
+
+def _params(fn):
+    a = fn.args
+    names = [x.arg for x in (*a.posonlyargs, *a.args, *a.kwonlyargs)]
+    return names + [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+
+
+def _surface(path, with_imports):
+    """A module's public surface, read with `ast` (nothing is imported):
+    {name: parameter names or None} for each public top-level def, class
+    and assignment, each public method (and __init__) of a public class as
+    "Class.method", `__all__` as the names it lists, and, `with_imports`,
+    the names bound by top-level imports."""
+    out = {}
+
+    def visit(body):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                if not node.name.startswith("_"):
+                    out[node.name] = _params(node)
+            elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+                out[node.name] = None
+                for m in node.body:
+                    if (isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+                            and (m.name == "__init__" or not m.name.startswith("_"))):
+                        out[f"{node.name}.{m.name}"] = _params(m)
+            elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+                targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+                for t in targets:
+                    if isinstance(t, ast.Name) and t.id == "__all__":
+                        out["__all__"] = ast.literal_eval(node.value)
+                    for n in ast.walk(t):
+                        if isinstance(n, ast.Name) and not n.id.startswith("_"):
+                            out[n.id] = None
+            elif isinstance(node, (ast.Import, ast.ImportFrom)) and with_imports:
+                for a in node.names:
+                    name = (a.asname or a.name).split(".")[0]
+                    if not name.startswith("_"):
+                        out[name] = None
+            elif isinstance(node, (ast.If, ast.Try)):
+                visit(node.body)
+                for h in getattr(node, "handlers", ()):
+                    visit(h.body)
+                visit(node.orelse)
+
+    visit(ast.parse(path.read_text()).body)
+    return out
+
+
+def _surface_gaps():
+    """Every public name and parameter of zk_state_proofs_tpu/ that its
+    counterpart module in zk_state_proofs_tpu_torch/ lacks, as NOT_PORTED's
+    keys. The counterpart of native/__init__.py is native.py, of any other
+    module the same relative path. Imports count as surface only in an
+    __init__.py of the JAX package; in the port any top-level binding does."""
+    jax_root, port_root = REPO / "zk_state_proofs_tpu", REPO / "zk_state_proofs_tpu_torch"
+    gaps = set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        twin = port_root / ("native.py" if rel == "native/__init__.py" else rel)
+        if not twin.exists():
+            gaps.add(rel)
+            continue
+        have = _surface(twin, with_imports=True)
+        for name, params in _surface(path, with_imports=path.name == "__init__.py").items():
+            if name not in have:
+                gaps.add(f"{rel}::{name}")
+            elif params:
+                gaps.update(f"{rel}::{name}({p})" for p in params
+                            if p not in (have[name] or ()))
+    return gaps
+
+
+def check_surface_parity():
+    """The port has every public name and parameter of the JAX package but
+    NOT_PORTED's, and each of NOT_PORTED's keys still names one it lacks."""
+    gaps = _surface_gaps()
+    assert all(NOT_PORTED.values()), "a NOT_PORTED entry has no reason"
+    assert not gaps - set(NOT_PORTED), f"the port lacks {sorted(gaps - set(NOT_PORTED))}"
+    assert not set(NOT_PORTED) - gaps, \
+        f"NOT_PORTED entries that name nothing missing: {sorted(set(NOT_PORTED) - gaps)}"
 
 
 def _assert_same_pack(got, want):
@@ -97,12 +221,26 @@ def test_pack_matches_jax_on_storage_world(host_path):
     assert sp.nodes.shape[2] >= max(len(n) for _, p, _ in w.storage_entries for n in p) + 4
 
 
-def test_oracle_keccak_rlp_and_trie_match_jax():
+def test_oracle_keccak_rlp_and_trie_match_jax(monkeypatch):
     rng = np.random.default_rng(11)
-    for n in (0, 1, 55, 135, 136, 137, 300):
+    msgs = []
+    for n in (0, 1, 55, 135, 136, 137, 300, 2092):
         msg = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
         assert oracle.keccak256(msg) == jax_oracle.keccak256(msg)
         assert native.keccak256(msg) == oracle.keccak256(msg)
+        msgs.append(msg)
+    # keccak256_batch with the native library, without it, and with a
+    # stale build that lacks the symbol
+    want = [oracle.keccak256(m) for m in msgs]
+    assert jax_native.keccak256_batch(msgs) == want
+    for lib in ("built", None, object()):
+        with monkeypatch.context() as m:
+            if lib != "built":
+                m.setattr(native, "get_lib", lambda: lib)
+            assert native.keccak256_batch(msgs) == want, lib
+            assert native.keccak256_batch([]) == []
+    _check_ops_and_meter(rng)
+    check_surface_parity()
     items = [b"", b"\x01", b"\x7f\x80", [b"ab" * 40, [b"c"]], 10**20]
     enc = oracle.rlp.encode([oracle.rlp.int_to_min_bytes(x) if isinstance(x, int) else x
                              for x in items])
@@ -126,6 +264,42 @@ def test_oracle_keccak_rlp_and_trie_match_jax():
         oracle.verify_merkle_proof(ours.root_hash(), ours.get_proof(b"\xee" * 8), b"\xee" * 8)
     with pytest.raises(oracle.TrieError):
         oracle.verify_merkle_proof(ours.root_hash(), proof[:-1], keys[3])
+
+
+def _check_ops_and_meter(rng):
+    """The `ops` re-exports and `Meter.dump` give the JAX package's."""
+    from zk_state_proofs_tpu import ops as jax_ops
+    from zk_state_proofs_tpu.utils.profiling import Meter as JaxMeter
+    from zk_state_proofs_tpu_torch import ops
+    from zk_state_proofs_tpu_torch.ops import keccak256, keccak256_fixed, keccak_f1600
+    from zk_state_proofs_tpu_torch.utils.profiling import Meter
+
+    assert ops.__all__ == jax_ops.__all__
+    data = rng.integers(0, 256, (5, 300), dtype=np.uint8)
+    lens = np.asarray([0, 55, 136, 137, 300], np.int32)
+    got = keccak256(torch.from_numpy(data), torch.from_numpy(lens)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_ops.keccak256(data, lens)))
+    assert [bytes(d) for d in got] == [oracle.keccak256(r[:n].tobytes())
+                                       for r, n in zip(data, lens)]
+    # the shapes of the call above, so that JAX reuses its compiled rounds
+    np.testing.assert_array_equal(keccak256_fixed(torch.from_numpy(data)).numpy(),
+                                  np.asarray(jax_ops.keccak256_fixed(data)))
+    hi, lo = rng.integers(0, 1 << 32, (2, 25, 5), dtype=np.uint32)
+    th, tl = keccak_f1600(torch.from_numpy(hi.astype(np.int64)),
+                          torch.from_numpy(lo.astype(np.int64)))
+    jh, jl = jax_ops.keccak_f1600(hi, lo)
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh, np.int64))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl, np.int64))
+
+    ours, theirs = Meter(), JaxMeter()
+    for step in ((4096, 9114, 4_800_000, 0.25), (1365, 3000, 1_600_000, 0.125)):
+        ours.record(*step)
+        theirs.record(*step)
+    a, b = io.StringIO(), io.StringIO()
+    ours.dump(file=a)
+    theirs.dump(file=b)
+    assert a.getvalue() == b.getvalue() and a.getvalue().count("\n") == 1
+    assert json.loads(a.getvalue()) == json.loads(b.getvalue()) == ours.summary()
 
 
 def test_block_host_copies_match_jax(monkeypatch, tmp_path):

@@ -63,6 +63,10 @@ def get_lib():
         _load_failed = True
         return None
     lib.zkp_keccak256.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p]
+    if hasattr(lib, "zkp_keccak256_batch"):
+        lib.zkp_keccak256_batch.restype = None
+        lib.zkp_keccak256_batch.argtypes = [
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.zkp_pack_proofs.restype = ctypes.c_int
     lib.zkp_build_node_pool.restype = ctypes.c_int
     lib.zkp_build_node_pool.argtypes = [
@@ -91,6 +95,25 @@ def keccak256(data: bytes) -> bytes:
     out = ctypes.create_string_buffer(32)
     lib.zkp_keccak256(data, len(data), out)
     return out.raw
+
+
+def keccak256_batch(messages) -> list[bytes]:
+    """Native legacy Keccak-256 of each byte string in `messages`, in one
+    call (zkp_keccak256_batch over the concatenated messages and their
+    offsets); falls back to the Python oracle without the native library
+    or the symbol."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "zkp_keccak256_batch"):
+        from .oracle.keccak import keccak256 as py_keccak
+
+        return [py_keccak(m) for m in messages]
+    blob = b"".join(messages)
+    offsets = np.zeros(len(messages) + 1, dtype=np.int64)
+    np.cumsum([len(m) for m in messages], out=offsets[1:])
+    out = np.empty((len(messages), 32), dtype=np.uint8)
+    lib.zkp_keccak256_batch(blob, offsets.ctypes.data_as(ctypes.c_void_p), len(messages),
+                            out.ctypes.data_as(ctypes.c_void_p))
+    return [bytes(row) for row in out]
 
 
 def build_node_pool_native(nodes, node_lens, num_nodes,

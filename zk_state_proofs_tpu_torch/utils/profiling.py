@@ -4,6 +4,8 @@ summary and a Chrome-trace export of the card's work."""
 from __future__ import annotations
 
 import contextlib
+import json
+import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -37,6 +39,10 @@ class Meter:
             "steps": self.steps,
             "seconds": self.seconds,
         }
+
+    def dump(self, file=sys.stderr) -> None:
+        """Print `summary()` as one JSON line to `file` and flush."""
+        print(json.dumps(self.summary()), file=file, flush=True)
 
 
 @contextlib.contextmanager
