@@ -1,0 +1,12 @@
+"""k4_roofline.sweep: the least time of the traced requests' K4 work (the
+frozen bound, reference/bounds.py) over the device time of the kernels of
+group k4 (metrics/kernels/k4/), in %.
+
+The sweep's copy of k4_roofline, which moves proofs_per_s: the sweep cell
+reports no request_ms_p95."""
+
+UNIT = "%"
+
+
+def read(t):
+    return t.roofline("k4")
