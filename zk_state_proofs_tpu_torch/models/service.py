@@ -11,7 +11,7 @@ them; any other batch takes the unsegmented route, with identical results.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -19,7 +19,7 @@ from ..ops import mpt
 from ..oracle import EthTrie, keccak256
 from ..utils.config import BucketConfig
 from ..utils.device import resolve_device
-from ..utils.profiling import Meter
+from ..utils.profiling import span
 from ..witness.pack import PackedProofs, PackingError, pack_proofs
 from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS, packed_to_tensors
 from .verifier import VerifyResult
@@ -35,7 +35,6 @@ class ServiceStats:
     excluded: int = 0
     invalid: int = 0
     seconds: float = 0.0
-    meter: Meter = field(default_factory=Meter)
 
     @property
     def proofs_per_sec(self) -> float:
@@ -104,14 +103,17 @@ class BatchVerifier:
             # empty proof + non-empty root rows verify INVALID (root
             # unfindable) and are sliced off in verify()
             entries = entries + [(b"\x00" * 31 + b"\x01", [], b"\x00")] * n_pad
-        packed = pack_proofs(
-            entries, max_nodes=self.bucket.max_nodes,
-            node_len=self.bucket.node_len,
-            key_nibbles=self.bucket.key_nibbles,
-        )
-        if self.dedup:
-            packed.pool(min_rows=self.pool_rows)
-        return packed
+        with span("zkp.pack"):
+            with span("zkp.pack.proofs"):
+                packed = pack_proofs(
+                    entries, max_nodes=self.bucket.max_nodes,
+                    node_len=self.bucket.node_len,
+                    key_nibbles=self.bucket.key_nibbles,
+                )
+            if self.dedup:
+                with span("zkp.pack.pool"):
+                    packed.pool(min_rows=self.pool_rows)
+            return packed
 
     # -- lifecycle -------------------------------------------------------
     def warmup(self, example_entries=None) -> float:
@@ -131,7 +133,7 @@ class BatchVerifier:
             probe = self.pack(example_entries)
             rows = int(probe.pool()[0].shape[0])
             self.pool_rows = -(-int(rows * 1.25) // 128) * 128
-        t0 = time.time()
+        t0 = time.perf_counter()
         packed = self.pack(example_entries)
         if self.pool_segments is not None and self.dedup:
             rows = int(packed.pool()[0].shape[0])
@@ -157,7 +159,7 @@ class BatchVerifier:
                                             force_pool_segments=po)
                         done.add((so, po))
         self._warm = True
-        return time.time() - t0
+        return time.perf_counter() - t0
 
     # -- serving ---------------------------------------------------------
     _UNSET = object()
@@ -173,7 +175,8 @@ class BatchVerifier:
             active = np.ones(packed.batch, dtype=np.int32)
             pool = packed.pool() if self.dedup else ()
             return fn(*(packed.astuple() + (active,) + pool))[:3]
-        t = packed_to_tensors(packed, self.device, pool=self.dedup)
+        with span("zkp.copy_in"):
+            t = packed_to_tensors(packed, self.device, pool=self.dedup)
         batch = [t[k] for k in BATCH_FIELDS]
         if not self.dedup:
             return mpt.verify_proofs(*batch, max_value_len=mvl)
@@ -226,24 +229,28 @@ class BatchVerifier:
             raise ValueError("empty request batch")
         if not self._warm:
             self.warmup()
-        t0 = time.time()
-        n = len(entries)
-        order = None
-        if self.depth_segments is not None and self.dedup and self.mesh is None:
-            # depth-sort for the pinned segment schedule; results are
-            # restored to request order below (padding rows, appended by
-            # pack(), carry zero nodes and land after every real entry)
-            order = sorted(range(n), key=lambda i: -len(entries[i][1]))
-            entries = [entries[i] for i in order]
-        packed = self.pack(entries)
-        status, values, vlens = (x.cpu().numpy()[:n]
-                                 for x in self._verify_packed(packed))
-        if order is not None:
-            inv = np.empty(n, dtype=np.int64)
-            inv[np.asarray(order)] = np.arange(n)
-            status, values, vlens = status[inv], values[inv], vlens[inv]
-        res = VerifyResult(status, values, vlens)
-        dt = time.time() - t0
+        with span("zkp.service.verify"):
+            t0 = time.perf_counter()
+            n = len(entries)
+            order = None
+            if self.depth_segments is not None and self.dedup and self.mesh is None:
+                # depth-sort for the pinned segment schedule; results are
+                # restored to request order below (padding rows, appended by
+                # pack(), carry zero nodes and land after every real entry)
+                with span("zkp.service.sort"):
+                    order = sorted(range(n), key=lambda i: -len(entries[i][1]))
+                    entries = [entries[i] for i in order]
+            packed = self.pack(entries)
+            out = self._verify_packed(packed)
+            with span("zkp.to_host"):
+                status, values, vlens = (x.cpu().numpy()[:n] for x in out)
+            if order is not None:
+                with span("zkp.service.sort"):
+                    inv = np.empty(n, dtype=np.int64)
+                    inv[np.asarray(order)] = np.arange(n)
+                    status, values, vlens = status[inv], values[inv], vlens[inv]
+            res = VerifyResult(status, values, vlens)
+            dt = time.perf_counter() - t0
         c = res.counts()
         s = self.stats
         s.batches += 1
@@ -252,5 +259,4 @@ class BatchVerifier:
         s.excluded += c["excluded"]
         s.invalid += c["invalid"]
         s.seconds += dt
-        s.meter.record(n, 0, 0, dt)
         return res

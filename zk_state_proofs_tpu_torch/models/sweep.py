@@ -46,7 +46,7 @@ import torch
 from ..ops import mpt
 from ..ops.rlp import item_offsets
 from ..utils.device import resolve_device
-from ..utils.profiling import Meter
+from ..utils.profiling import Meter, span
 from ..witness.pack import PackedProofs, pack_proofs
 
 _CODES = (mpt.FOUND, mpt.EXCLUDED, mpt.INVALID)
@@ -167,11 +167,12 @@ def _upload(global_packed: PackedProofs, dev) -> dict:
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
-    r = {"pool": put(pool_nodes, np.uint8), "plens": put(pool_lens, np.int32),
-         "idx": put(pool_idx, np.int32), "num": put(global_packed.num_nodes, np.int32),
-         "roots": put(global_packed.roots, np.uint8),
-         "knib": put(global_packed.key_nibbles, np.uint8),
-         "klen": put(global_packed.key_lens, np.int32)}
+    with span("zkp.sweep.upload"):
+        r = {"pool": put(pool_nodes, np.uint8), "plens": put(pool_lens, np.int32),
+             "idx": put(pool_idx, np.int32), "num": put(global_packed.num_nodes, np.int32),
+             "roots": put(global_packed.roots, np.uint8),
+             "knib": put(global_packed.key_nibbles, np.uint8),
+             "klen": put(global_packed.key_lens, np.int32)}
     r["dig"] = mpt.hash_pool(r["pool"], r["plens"])
     return r
 
@@ -184,11 +185,12 @@ def _expand_tables(r: dict):
     from hashing the same pool rows the node bytes are gathered from."""
     a, dd = r["idx"].shape
     n = r["pool"].shape[1]
-    flat = r["idx"].reshape(-1).to(torch.int64)
-    payload = torch.cat([r["dig"], item_offsets(r["pool"])], dim=1)  # [U, 68]
-    return (torch.index_select(r["pool"], 0, flat).reshape(a, dd * n),
-            torch.index_select(r["plens"], 0, flat).reshape(a, dd),
-            torch.index_select(payload, 0, flat).reshape(a, dd * 68))
+    with span("zkp.sweep.expand"):
+        flat = r["idx"].reshape(-1).to(torch.int64)
+        payload = torch.cat([r["dig"], item_offsets(r["pool"])], dim=1)  # [U, 68]
+        return (torch.index_select(r["pool"], 0, flat).reshape(a, dd * n),
+                torch.index_select(r["plens"], 0, flat).reshape(a, dd),
+                torch.index_select(payload, 0, flat).reshape(a, dd * 68))
 
 
 def _verify_sel(sel, r: dict, tables, max_value_len, max_steps, dev):
@@ -325,22 +327,26 @@ def sweep_resident_epochs(global_packed: PackedProofs, epochs: int, batch: int,
         raise ValueError(f"batch {batch} exceeds global rows {a}")
     if a % n or batch % n:
         raise ValueError(f"rows {a} and batch {batch} must divide the mesh ({n})")
-    tp = time.perf_counter()
-    t = epoch_tables(global_packed, dev, rows=mesh.shard(a))
-    _sync(dev)
-    pack_s = time.perf_counter() - tp
-    b_local = batch // n
-    starts = [int(s) for s in epoch_windows(a // n, b_local)]
-    counts = _Counts(dev, mesh)
-    t0 = time.perf_counter()
-    with _sync_check(forbid_sync, dev):
-        for e in range(epochs):
-            for s0 in starts:
-                counts.add(epoch_batch(t, s0, b_local, (salt + e) & 0xFF, max_value_len,
-                                       max_steps, dev)[0])
-    dispatch_s = time.perf_counter() - t0
-    totals = counts.read()
-    dt = time.perf_counter() - t0
+    with span("zkp.sweep"):
+        tp = time.perf_counter()
+        with span("zkp.sweep.tables"):
+            t = epoch_tables(global_packed, dev, rows=mesh.shard(a))
+            _sync(dev)
+        pack_s = time.perf_counter() - tp
+        b_local = batch // n
+        starts = [int(s) for s in epoch_windows(a // n, b_local)]
+        counts = _Counts(dev, mesh)
+        t0 = time.perf_counter()
+        with span("zkp.sweep.windows"), _sync_check(forbid_sync, dev):
+            for e in range(epochs):
+                for s0 in starts:
+                    with span("zkp.sweep.window"):
+                        counts.add(epoch_batch(t, s0, b_local, (salt + e) & 0xFF, max_value_len,
+                                               max_steps, dev)[0])
+        dispatch_s = time.perf_counter() - t0
+        with span("zkp.sweep.drain"):
+            totals = counts.read()
+        dt = time.perf_counter() - t0
     return _result(totals, epochs * len(starts) * batch, dt, meter, pack_seconds=pack_s,
                    dispatch_seconds=dispatch_s, drain_seconds=dt - dispatch_s,
                    batches=epochs * len(starts))

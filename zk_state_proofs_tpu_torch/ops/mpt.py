@@ -31,6 +31,7 @@ import torch
 
 from ..oracle.trie import EMPTY_ROOT
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import mpt_cuda
 from .keccak_cuda import keccak256_cuda
 from .rlp import (bytes_to_nibbles_device, decode_node_bounded,
@@ -359,13 +360,14 @@ def hash_nodes_pooled(pool_nodes, pool_lens, pool_idx, pool_hints=None,
     with_hints is set — the 36 hint bytes ride the same row gather. With
     with_hints and no pool_hints the hints come from the device pass
     (rlp.item_offsets over the pool rows)."""
-    payload = _hash_pool_rows(pool_nodes, pool_lens, pool_segments)
-    with_hints = with_hints or pool_hints is not None
-    if with_hints:
-        if pool_hints is None:
-            pool_hints = item_offsets(pool_nodes)
-        payload = torch.cat([payload, pool_hints], dim=1)  # [U, 68]
-    out = scatter_pool_payload(payload, pool_idx)
+    with span("zkp.hash"):
+        payload = _hash_pool_rows(pool_nodes, pool_lens, pool_segments)
+        with_hints = with_hints or pool_hints is not None
+        if with_hints:
+            if pool_hints is None:
+                pool_hints = item_offsets(pool_nodes)
+            payload = torch.cat([payload, pool_hints], dim=1)  # [U, 68]
+        out = scatter_pool_payload(payload, pool_idx)
     if with_hints:
         return out[..., :32], out[..., 32:]
     return out
@@ -373,7 +375,8 @@ def hash_nodes_pooled(pool_nodes, pool_lens, pool_idx, pool_hints=None,
 
 def hash_pool(pool_nodes, pool_lens):
     """Digest a unique-node pool: u8 [U, N], i32 [U] -> u8 [U, 32]."""
-    return keccak256_cuda(pool_nodes, pool_lens)
+    with span("zkp.hash"):
+        return keccak256_cuda(pool_nodes, pool_lens)
 
 
 def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
@@ -406,17 +409,18 @@ def verify_proofs_pooled(nodes, node_lens, num_nodes, roots, key_nibbles,
     pool_segments: ((row_count, width), ...) covering the pool in order
     (PackedProofs.pool_block_segments()) — one keccak launch per segment
     at its trimmed width."""
-    hint_mode = check_hint_mode(hint_mode)
-    table = hash_nodes_pooled(pool_nodes, pool_lens, pool_idx,
-                              pool_hints if hinted else None, pool_segments,
-                              with_hints=hinted)
-    digests, hints = table if hinted else (table, None)
-    args = (nodes, node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
-            max_value_len, max_steps)
-    if depth_segments is None:
-        return mpt_cuda.walk_batch_cuda(*args, hints=hints, hint_mode=hint_mode)
-    return mpt_cuda.walk_batch_cuda_segmented(depth_segments, *args, hints=hints,
-                                              hint_mode=hint_mode)
+    with span("zkp.verify"):
+        hint_mode = check_hint_mode(hint_mode)
+        table = hash_nodes_pooled(pool_nodes, pool_lens, pool_idx,
+                                  pool_hints if hinted else None, pool_segments,
+                                  with_hints=hinted)
+        digests, hints = table if hinted else (table, None)
+        args = (nodes, node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
+                max_value_len, max_steps)
+        if depth_segments is None:
+            return mpt_cuda.walk_batch_cuda(*args, hints=hints, hint_mode=hint_mode)
+        return mpt_cuda.walk_batch_cuda_segmented(depth_segments, *args, hints=hints,
+                                                  hint_mode=hint_mode)
 
 
 def _on(device, *xs):

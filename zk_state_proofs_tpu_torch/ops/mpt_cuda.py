@@ -39,6 +39,7 @@ import itertools
 
 import torch
 
+from ..utils.profiling import span
 from . import mpt
 from ._build import check_launch, launch_counts, load_library
 
@@ -337,12 +338,13 @@ def rerun_exact(out, values, args, tag: int | None):
     (out, values)."""
     if out.shape[0] == 0:
         return out, values
-    if out.device.type == "cpu":
-        return walk_lanes("exact", *args) if bool(guard_plain(out)) else (out, values)
-    if tag is None:
-        raise ValueError("rerun_exact: a batch on the card needs its first walk's tag")
-    return _launch("zkp_mpt_walk", LAUNCHES, "exact", *args, None, aligned=False,
-                   into=(out, values), tally=exact_tally(out.device), tag=tag)
+    with span("zkp.walk.rerun"):
+        if out.device.type == "cpu":
+            return walk_lanes("exact", *args) if bool(guard_plain(out)) else (out, values)
+        if tag is None:
+            raise ValueError("rerun_exact: a batch on the card needs its first walk's tag")
+        return _launch("zkp_mpt_walk", LAUNCHES, "exact", *args, None, aligned=False,
+                       into=(out, values), tally=exact_tally(out.device), tag=tag)
 
 
 def rerun_exact_guard_kernel(out, values, args):
@@ -379,12 +381,13 @@ def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
     mode = "bounded" if hints is None else hint_mode
     args = (nodes, node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
             max_value_len, max_steps)
-    tag = None if nodes.device.type == "cpu" else next_tag()
-    out, values = walk_lanes(mode, *args, hints=hints, tag=tag)
-    fast_ovf = out[:, 4].clone() if with_overflow else None
-    out, values = rerun_exact(out, values, args, tag)
-    status = out[:, 0]
-    result = (status, values, torch.where(status == mpt.FOUND, out[:, 3], 0))
+    with span("zkp.walk"):
+        tag = None if nodes.device.type == "cpu" else next_tag()
+        out, values = walk_lanes(mode, *args, hints=hints, tag=tag)
+        fast_ovf = out[:, 4].clone() if with_overflow else None
+        out, values = rerun_exact(out, values, args, tag)
+        status = out[:, 0]
+        result = (status, values, torch.where(status == mpt.FOUND, out[:, 3], 0))
     if with_reasons:
         result = result + (out[:, 5],)
     if with_overflow:

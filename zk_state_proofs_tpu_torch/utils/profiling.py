@@ -1,5 +1,5 @@
-"""Throughput meter, a timing context, CUDA-event timers, a torch.profiler
-summary and a Chrome-trace export of the card's work."""
+"""Throughput meter, a timing context, the port's spans, CUDA-event timers,
+a torch.profiler summary and a Chrome-trace export of the card's work."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @dataclass
@@ -50,13 +51,30 @@ def timed(result_holder: dict, key: str = "seconds", sync=None):
     """Time a block into result_holder[key]. `sync` (a torch.device or a
     tensor) names the device to synchronise before the clock stops, so
     its queued work is included; a CPU device needs none."""
-    t0 = time.time()
+    t0 = time.perf_counter()
     yield
     if sync is not None:
         dev = sync if isinstance(sync, torch.device) else sync.device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    result_holder[key] = time.time() - t0
+    result_holder[key] = time.perf_counter() - t0
+
+
+_NO_SPAN = contextlib.nullcontext()  # the span while no profiler runs
+
+
+def span(name: str):
+    """A host span `name` (`zkp.<layer>[.<part>]`) over a `with` block.
+
+    While torch.profiler records, it is `torch.profiler.record_function`,
+    which lands in the Chrome trace as a `user_annotation` event on the
+    clock of the card's kernel and copy records; a span opened inside
+    another on the same thread nests in it. While no profiler runs, it is
+    one shared object that does nothing: one read of the profiler's own
+    flag, no allocation, no clock."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
