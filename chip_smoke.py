@@ -127,7 +127,13 @@ Phases, each printing a line:
      dispatch / drain seconds, launches per batch (the guard kernel 0) and
      the device-busy share of an epoch batch; the folded flag on an epoch
      window of the world and of the mixed witness; the baseline guard
-     kernel against its plain version;
+     kernel against its plain version; then the sweep's upload on config
+     5's witness: its arrays copied to the card from the page-locked
+     staging the resident sweeps copy from and by a plain pageable
+     `.to(dev)`, in turns, host ms to the copies' end and GB/s of each,
+     the one-time staging's seconds, and the epoch tables built through
+     the staging equal to those built from the pageable copy, byte for
+     byte;
  16. roots and circuits: compute_root on the receipt trie of
      synthetic_block(256, seed=5) and the transaction trie of the 256-tx
      block equals their receiptsRoot and transactionsRoot (and the plain
@@ -239,7 +245,10 @@ try:
                                                   verify_merkle_batch, verify_storage_batch,
                                                   verify_storage_grouped)
     from zk_state_proofs_tpu_torch.models.blocks import _bucket_for
-    from zk_state_proofs_tpu_torch.models.sweep import epoch_batch, epoch_tables, epoch_windows
+    from zk_state_proofs_tpu_torch.models.sweep import (_UPLOAD, _expand_tables,
+                                                        _PinnedStaging, _pinned_staging,
+                                                        _upload_arrays, epoch_batch,
+                                                        epoch_tables, epoch_windows)
     from zk_state_proofs_tpu_torch.models.verifier import (_slot_key_nibbles,
                                                            _storage_core_grouped)
     from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
@@ -288,6 +297,7 @@ SWEEP_ACCOUNTS = 65536
 SWEEP_BATCH = 4096
 SWEEP_BATCHES = 256
 SWEEP_SEED = 5            # the index batches' numpy Generator
+UPLOAD_REPS = 5           # turns of the sweep upload's A/B, page-locked against pageable
 ROOT_BLOCK = (256, 5)     # synthetic_block(num_txs, seed): config 5's receipt-trie root
 PAR_ENTRY_BATCHES = 32    # sweep_entries(mesh=) batches in phase 17 (host packing bound)
 PAR_RANKS = 2             # gloo ranks sharing the one card in phase 17
@@ -648,6 +658,8 @@ def main() -> None:
     for mode in ("hinted", "exact"):
         k2_err[mode] = max(k2_err[mode], swp["err"]["k2"])
     stamp("phase 15 (sweeps)")
+    swp["upload"] = phase_upload(swp["gp"], card, dev)
+    stamp("phase 15 (the sweep's upload, page-locked against pageable)")
     rc = phase_roots_circuits(tx_block, card, dev)
     stamp("phase 16 (roots, circuits)")
 
@@ -926,6 +938,67 @@ def phase_sweeps(card, dev):
 
     return {"launches": launches, "guard": guard_check(card, dev), "err": err, "world": w,
             "gp": gp, "epochs": res["epochs"], "pool_rows": pool_rows}
+
+
+def phase_upload(gp, card, dev):
+    """Phase 15's upload A/B on config 5's witness: its upload arrays
+    copied to new device tensors from the page-locked staging that the
+    resident sweeps copy from (queued, one sync at the end) and by a plain
+    pageable `.to(dev)` of the same arrays, in UPLOAD_REPS turns; host ms
+    to the copies' end and GB/s of each (the median turn); the seconds of
+    a fresh staging of the same arrays; the epoch tables built through the
+    staging equal, byte for byte, those built from the pageable copy."""
+    arrays = _upload_arrays(gp)
+    t0 = time.perf_counter()
+    fresh = _PinnedStaging(arrays)
+    stage_s = time.perf_counter() - t0
+    del fresh
+    staged = _pinned_staging(gp, arrays).tensors
+    nbytes = sum(h.nbytes for h in staged.values())
+
+    def pinned():
+        out = {k: h.to(dev, non_blocking=True) for k, h in staged.items()}
+        torch.cuda.current_stream(dev).synchronize()
+        return out
+
+    def pageable():
+        out = {name: torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
+               for a, (name, dt) in zip(arrays, _UPLOAD)}
+        torch.cuda.synchronize()
+        return out
+
+    ms = {"page-locked": [], "pageable": []}
+    for _ in range(UPLOAD_REPS):
+        for name, fn in (("page-locked", pinned), ("pageable", pageable)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    rate = {k: nbytes / v / 1e6 for k, v in med.items()}
+    t = epoch_tables(gp, dev)
+    check(t["pinned_bytes"] == nbytes, f"epoch_tables copied {t['pinned_bytes']} B from "
+                                       f"page-locked memory, not the upload's {nbytes}")
+    r = pageable()
+    r["dig"] = mpt.hash_pool(r["pool"], r["plens"])
+    nodes, lens, dh = _expand_tables(r)
+    a, d = r["idx"].shape
+    for k, want in (("nodes", nodes.view(a, d, -1)), ("lens", lens), ("dh", dh.view(a, d, 68)),
+                    ("num", r["num"]), ("roots", r["roots"]), ("knib", r["knib"]),
+                    ("klen", r["klen"])):
+        check(t[k].dtype == want.dtype and torch.equal(t[k], want),
+              f"the epoch table {k} through the page-locked staging differs from the one "
+              f"built from a pageable copy")
+    del t, r, nodes, lens, dh
+    log(f"[15 upload] config 5's witness upload ({nbytes / 1e6:.1f} MB: pool "
+        f"{tuple(staged['pool'].shape)}, index {tuple(staged['idx'].shape)}, scalars), host ms "
+        f"to the copies' end, median of {UPLOAD_REPS} turns: page-locked staging "
+        f"{med['page-locked']:.3f} ms = {rate['page-locked']:.2f} GB/s, pageable .to(dev) "
+        f"{med['pageable']:.3f} ms = {rate['pageable']:.2f} GB/s "
+        f"({med['pageable'] / med['page-locked']:.2f}x); turns {ms}; a fresh staging "
+        f"{stage_s:.3f} s; the epoch tables through the staging == those from the pageable "
+        f"copy, byte for byte, on {card}")
+    return {"bytes": nbytes, "ms": med, "gb_per_s": rate, "stage_s": stage_s}
 
 
 def sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev):

@@ -12,12 +12,16 @@ no JAX and nothing of the JAX package, so it runs on a machine with PyTorch alon
 (`--noconftest`: the suite's conftest configures JAX.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from zk_state_proofs_tpu_torch.models import (replicated_batches, sweep, sweep_entries,
                                               sweep_resident, sweep_resident_epochs)
+from zk_state_proofs_tpu_torch.models.sweep import (_UPLOAD, _expand_tables, _upload,
+                                                    _upload_arrays, epoch_tables)
 from zk_state_proofs_tpu_torch.oracle import EthTrie, keccak256, rlp
 from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
 from zk_state_proofs_tpu_torch.ops import decode_cuda, keccak_cuda, mpt, mpt_cuda
@@ -286,6 +290,49 @@ def _check_device_hint_pass_and_sweeps(dev, packed):
             want = counts
         assert counts == want
     assert min(want[0][:3]) > 0
+
+
+def test_epoch_sweep_copies_the_witness_from_page_locked_memory(dev):
+    """Two epoch sweeps on one witness copy every byte of its upload from
+    page-locked memory, staged by the first call and reused by the second,
+    and count what the CPU counts; tables built through the staging equal,
+    byte for byte, tables built from a pageable copy of the same witness; a
+    witness whose arrays are page-locked already is copied as it is."""
+    w = sweep_world(48)
+    gp = pack_proofs(w.entries(range(48)) + _entries()[12:], max_nodes=8, node_len=576)
+    arrays = _upload_arrays(gp)
+    upload = sum(a.size * np.dtype(dt).itemsize for a, (_, dt) in zip(arrays, _UPLOAD))
+    assert not any(torch.from_numpy(a).is_pinned() for a in arrays)
+    staged = None
+    for salt in (5, 0x81):
+        cpu = sweep_resident_epochs(gp, 2, 16, salt=salt, device="cpu")
+        got = sweep_resident_epochs(gp, 2, 16, salt=salt, device=dev, forbid_sync=True)
+        assert cpu.pinned_upload_bytes == 0 and got.pinned_upload_bytes == upload
+        assert ((got.found, got.excluded, got.invalid, got.total, got.batches)
+                == (cpu.found, cpu.excluded, cpu.invalid, cpu.total, cpu.batches))
+        staged = staged or gp._upload_staging
+        assert gp._upload_staging is staged
+    assert all(h.is_pinned() for h in staged.tensors.values())
+    assert min(cpu.found, cpu.excluded, cpu.invalid) > 0
+    t = epoch_tables(gp, dev)
+    assert t["pinned_bytes"] == upload and gp._upload_staging is staged
+    r = {name: torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
+         for a, (name, dt) in zip(arrays, _UPLOAD)}
+    r["dig"] = mpt.hash_pool(r["pool"], r["plens"])
+    nodes, lens, dh = _expand_tables(r)
+    a, d = r["idx"].shape
+    for k, want in (("nodes", nodes.view(a, d, -1)), ("lens", lens), ("dh", dh.view(a, d, 68)),
+                    ("num", r["num"]), ("roots", r["roots"]), ("knib", r["knib"]),
+                    ("klen", r["klen"])):
+        assert t[k].dtype == want.dtype and torch.equal(t[k], want), k
+    host = {name: h.numpy() for name, h in staged.tensors.items()}
+    locked = dataclasses.replace(gp, pool_nodes=host["pool"], pool_lens=host["plens"],
+                                 pool_idx=host["idx"], num_nodes=host["num"],
+                                 roots=host["roots"], key_nibbles=host["knib"],
+                                 key_lens=host["klen"])
+    r2 = _upload(locked, dev)
+    assert r2["pinned_bytes"] == upload and not hasattr(locked, "_upload_staging")
+    assert torch.equal(r2["dig"], r["dig"]) and torch.equal(r2["idx"], r["idx"])
 
 
 # The walk kernel's three ways of holding node rows (csrc/mpt_walk.cu):

@@ -176,13 +176,17 @@ def test_sweeps_count_as_jax(mixed):
         _assert_counts(res, [2 * c for c in _counts(status[sels[0]])], 2 * BATCH, 2)
 
     # the epoch sweep: windows (the tail clamped to end at the last row) and
-    # the counter byte, held against the JAX function itself; counter 0x81
-    # on the root node's last byte breaks its empty value slot
+    # the counter byte, held against the JAX function itself, twice on one
+    # witness (a card copies the second call's upload from the staging the
+    # first made; the CPU stages nothing); counter 0x81 on the root node's
+    # last byte breaks its empty value slot, 0x7F and 0x80 do not
     jpacked = jax_pack(entries, max_nodes=max_nodes, node_len=node_len)
-    jres = jax_sweep_resident_epochs(jpacked, epochs=2, batch=BATCH, max_steps=max_nodes,
-                                     salt=0x80)
+    jres = [jax_sweep_resident_epochs(jpacked, epochs=2, batch=BATCH, max_steps=max_nodes,
+                                      salt=salt) for salt in (0x80, 0x7F)]
     res = sweep_resident_epochs(packed, epochs=2, batch=BATCH, salt=0x80, forbid_sync=True,
                                 **kw)
+    again = sweep_resident_epochs(packed, epochs=2, batch=BATCH, salt=0x7F, **kw)
+    assert res.pinned_upload_bytes == again.pinned_upload_bytes == 0
     starts = epoch_windows(n, BATCH)
     assert starts[-1] == n - BATCH and len(starts) == -(-n // BATCH)
 
@@ -193,11 +197,11 @@ def test_sweeps_count_as_jax(mixed):
     under_root = np.array([e[0] == mixed["root"] for e in entries])
     epoch1 = windows(np.where(under_root, tmpt.INVALID, status))
     assert epoch1 != epoch0
-    _assert_counts(res, [jres.found, jres.excluded, jres.invalid], jres.total, jres.batches)
+    for got, j in zip((res, again), jres):
+        _assert_counts(got, [j.found, j.excluded, j.invalid], j.total, j.batches)
     _assert_counts(res, [a + b for a, b in zip(epoch0, epoch1)], 2 * len(starts) * BATCH,
                    2 * len(starts))
-    res = sweep_resident_epochs(packed, epochs=1, batch=BATCH, salt=0x7F, **kw)
-    _assert_counts(res, epoch0, len(starts) * BATCH, len(starts))
+    _assert_counts(again, [2 * c for c in epoch0], 2 * len(starts) * BATCH, 2 * len(starts))
     with pytest.raises(ValueError):
         sweep_resident_epochs(packed, epochs=1, batch=n + 1, **kw)
     # a one-rank mesh (no process group) counts as the unsharded sweeps
