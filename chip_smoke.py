@@ -250,7 +250,7 @@ try:
                                                         _upload_arrays, epoch_batch,
                                                         epoch_tables, epoch_windows)
     from zk_state_proofs_tpu_torch.models.verifier import (_slot_key_nibbles,
-                                                           _storage_core_grouped)
+                                                           verify_storage_pooled)
     from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
     from zk_state_proofs_tpu_torch.ops import decode_cuda, keccak_cuda, mpt, mpt_cuda
     from zk_state_proofs_tpu_torch.ops._build import load_library
@@ -2250,7 +2250,7 @@ def phase_storage(sw, card, dev):
             # node row and slot changes; results do not (bench_configs.py's
             # recipe)
             perturb(ctr, at["nodes"], at["pool_nodes"], st["nodes"], st["pool_nodes"], slots36)
-            a_st, acct, s_st, s_v, s_vl = (_storage_core_grouped if kernels
+            a_st, acct, s_st, s_v, s_vl = (verify_storage_pooled if kernels
                                            else plain_storage)(*args36)
             acc_a.add_(a_st).add_(acct["balance"].sum(1, dtype=torch.int64))
             return s_st, s_v, s_vl
@@ -2279,7 +2279,7 @@ def phase_storage(sw, card, dev):
     s_knib, s_klen = _slot_key_nibbles(slots36)
     s_roots = torch.index_select(acct["storage_root"], 0, sw["sa"].to(torch.int64))
     stages = {
-        "whole call": lambda i: _storage_core_grouped(*args36),
+        "whole call": lambda i: verify_storage_pooled(*args36),
         "account level": lambda i: mpt.verify_proofs_pooled(
             *core_args[0], *core_args[1], core_args[2], max_value_len=128),
         "decode_account": lambda i: decode_account(*a_out[1:]),
@@ -2298,7 +2298,7 @@ def phase_storage(sw, card, dev):
     # config 2's form: the account level hinted by the device hint pass
     nohint = args36[:2] + (None,) + args36[3:]
     before_after("10", "config 2's grouped storage call, no pack-time account hints",
-                 lambda i: _storage_core_grouped(*nohint), card,
+                 lambda i: verify_storage_pooled(*nohint), card,
                  ("item_offsets", "decode_account"))
     k5 = stage_times(lambda: decode_account(*a_out[1:]), lambda: decode_account_plain(*a_out[1:]))
     k5.update(err=k5_err, bound=account_bound(a_out[1]))
@@ -2937,7 +2937,7 @@ def plain_pooled(batch, pool, pool_hints, segs=None, psegs=None, max_value_len=1
 
 def plain_storage(a_batch, a_pool, a_hints, s_nodes, s_lens, s_num, s_pool, slots,
                   slot_accounts):
-    """models.verifier._storage_core_grouped from the plain versions only,
+    """models.verifier.verify_storage_pooled from the plain versions only,
     on any device: the same arguments and results."""
     a_dig, a_h = plain_table(a_pool, a_hints)
     a_status, a_values, a_vlens = plain_walk(a_batch, a_dig, a_h, 128)

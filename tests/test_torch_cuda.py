@@ -2,7 +2,9 @@
 against the one-thread kernels that came before them; the `exact` re-run
 decided on the card (the flag folded into the first walk) against the
 route that read its flag on the host and the guard kernel it replaced; the
-device hint pass and the sweeps on the card against the CPU.
+device hint pass and the sweeps on the card against the CPU; the
+two-level storage entry at the benchmark's published widths against its
+plain reference.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX and nothing of the JAX package, so it runs on a machine with PyTorch alone:
@@ -18,8 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from proofbench.drivers._common import Batches
+from proofbench.reference import storage as plain
+from proofbench.traffic._storage import make_storage_world
 from zk_state_proofs_tpu_torch.models import (replicated_batches, sweep, sweep_entries,
-                                              sweep_resident, sweep_resident_epochs)
+                                              sweep_resident, sweep_resident_epochs,
+                                              verify_storage_pooled)
 from zk_state_proofs_tpu_torch.models.sweep import (_UPLOAD, _expand_tables, _upload,
                                                     _upload_arrays, epoch_tables)
 from zk_state_proofs_tpu_torch.oracle import EthTrie, keccak256, rlp
@@ -28,7 +34,8 @@ from zk_state_proofs_tpu_torch.ops import decode_cuda, keccak_cuda, mpt, mpt_cud
 from zk_state_proofs_tpu_torch.ops import rlp as rlp_ops
 from zk_state_proofs_tpu_torch.ops.account import decode_account, decode_account_plain
 from zk_state_proofs_tpu_torch.witness import host_item_offsets, pack_proofs
-from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, account_entries,
+from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, POOL_FIELDS,
+                                                      account_entries,
                                                       account_fuzz_values, decode_fuzz_rows,
                                                       packed_to_tensors, sweep_world)
 
@@ -451,3 +458,44 @@ def test_keccak_raw_kernel_matches_plain_and_k1(dev):
         for i, n in enumerate(lengths):
             if n <= width:
                 assert bytes(got[i].cpu().numpy()) == keccak256(bytes(data[i, :n]))
+
+
+def test_storage_pooled_at_published_widths_matches_the_plain_reference(dev):
+    """One batch of the benchmark's erc20_storage cell: 4096 holder slots
+    of a 2^24-slot storage trie (7-9-node proofs in 576-byte rows, an
+    11-node bucket, 64-byte values, inline leaves where the trie has them,
+    one tampered leaf) under the token's mainnet-depth account proof,
+    through K1, K2 `hinted` and `bounded` (with the guarded `exact`) and
+    K5, against the plain reference walked on the card."""
+    w = make_storage_world(2**40 + 7, holders=4096, virtual_slots=1 << 24, max_nodes=11,
+                           virtual_accounts=1 << 28, account_max_nodes=12, node_len=576,
+                           position=2, tampered=1, device=dev).to("cpu")
+    ap = pack_proofs(Batches(w.account, 1, 1).entries([0]), max_nodes=12, node_len=576)
+    sp = pack_proofs(Batches(w.slots, 4096, 1).entries(range(4096)), max_nodes=11,
+                     node_len=576)
+    at, st = packed_to_tensors(ap, dev), packed_to_tensors(sp, dev, hints=False)
+    a_status, acct, s_status, s_values, s_vlens = verify_storage_pooled(
+        [at[k] for k in BATCH_FIELDS], [at[k] for k in POOL_FIELDS], at["pool_hints"],
+        st["nodes"], st["node_lens"], st["num_nodes"], [st[k] for k in POOL_FIELDS],
+        w.raw_slots.to(dev), torch.zeros(4096, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+
+    def table(pop):
+        pn = pop.proof_nodes.to(dev)
+        ids = pn.clamp(min=0)
+        return (pop.nodes.to(dev)[ids], torch.where(pn >= 0, pop.node_lens.to(dev)[ids], 0),
+                pop.proof_lens.to(dev))
+
+    a = w.account
+    want_a, want_acct = plain.verify_accounts(*table(a), a.root.to(dev).expand(1, 32),
+                                              a.keys.to(dev))
+    assert want_a.tolist() == [mpt.FOUND] and want_acct["ok"].tolist() == [True]
+    assert a_status.tolist() == [mpt.FOUND] and acct["ok"].tolist() == [True]
+    for f in ("nonce", "balance", "storage_root", "code_hash"):
+        assert torch.equal(acct[f], want_acct[f]), f
+    ws, wv, wl = plain.verify_slots(*table(w.slots), want_acct["storage_root"].expand(4096, 32),
+                                    w.raw_slots.to(dev))
+    assert int((ws == mpt.INVALID).sum()) == 1 and int((ws == mpt.FOUND).sum()) == 4095
+    assert torch.equal(s_status.long(), ws) and torch.equal(s_vlens.long(), wl)
+    mask = torch.arange(64, device=dev)[None, :] < wl[:, None]
+    assert torch.equal(torch.where(mask, s_values, 0), wv)

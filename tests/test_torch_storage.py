@@ -1,6 +1,9 @@
 """Two-level account -> storage verification: the port (device="cpu", plain
 versions of the kernels) against the JAX package on the same witnesses,
-every field of the results bit for bit, and against the oracle's values.
+every field of the results bit for bit, and against the oracle's values;
+the device-resident entry `verify_storage_pooled` and
+`verify_storage_grouped` against the benchmark's plain reference
+(proofbench/reference/storage.py) on its generator's seeded worlds.
 
 Every JAX call here has one batch shape (ROWS account rows, ROWS slot rows,
 one node bucket), so the JAX side compiles each storage core once."""
@@ -17,13 +20,17 @@ from zk_state_proofs_tpu.models import verify_storage_batch as jax_batch
 from zk_state_proofs_tpu.models import verify_storage_grouped as jax_grouped
 from zk_state_proofs_tpu.oracle import EthTrie, keccak256, rlp
 from zk_state_proofs_tpu.ops import account as jaccount
+from proofbench.drivers._common import Batches
+from proofbench.reference import storage as plain
+from proofbench.traffic._storage import make_storage_world
 from zk_state_proofs_tpu.witness import pack_proofs as jax_pack
-from zk_state_proofs_tpu_torch.models import (verify_storage_batch,
-                                              verify_storage_grouped)
+from zk_state_proofs_tpu_torch.models import (verify_storage_batch, verify_storage_grouped,
+                                              verify_storage_pooled)
 from zk_state_proofs_tpu_torch.ops import mpt
 from zk_state_proofs_tpu_torch.ops.account import decode_account
 from zk_state_proofs_tpu_torch.witness import pack_proofs
-from zk_state_proofs_tpu_torch.witness_bridge import account_fuzz_values
+from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, POOL_FIELDS,
+                                                      account_fuzz_values, packed_to_tensors)
 
 # The suite runs in several worker processes on one machine: one intra-op
 # thread each keeps torch's thread pools from oversubscribing its cores.
@@ -187,3 +194,105 @@ def test_storage_entry_points_check_their_inputs():
         verify_storage_grouped(ap, sp, slots[:3], np.full(3, 2, np.int32))
     with pytest.raises(ValueError):
         verify_storage_batch(ap, sp, slots[:2])
+
+
+# the benchmark's storage generator at a CPU size: 2^12 virtual slots (4-6
+# node proofs), both levels in 576-byte rows, the slot level's 11-node and
+# 64-byte-value bucket
+ACCOUNT_BUCKET = dict(max_nodes=12, node_len=576)
+SLOT_BUCKET = dict(max_nodes=11, node_len=576)
+
+
+def _bench_world(seed, holders, tampered):
+    return make_storage_world(seed, holders=holders, virtual_slots=1 << 12, max_nodes=11,
+                              virtual_accounts=1 << 28, account_max_nodes=12, node_len=576,
+                              position=2, tampered=tampered)
+
+
+def _plain_table(pop):
+    pn = pop.proof_nodes
+    ids = pn.clamp(min=0)
+    return pop.nodes[ids], torch.where(pn >= 0, pop.node_lens[ids], 0), pop.proof_lens
+
+
+def _bench_case(worlds):
+    """Packed account proofs (one a world), packed slot proofs, raw slots,
+    slot -> account rows, and the plain reference's answers: (account
+    status, fields) and (slot status, values, lengths)."""
+    a_entries, s_entries, slots, sa, a_ref, s_ref = [], [], [], [], [], []
+    for k, w in enumerate(worlds):
+        q = w.slots.size
+        a_entries += Batches(w.account, 1, 1).entries([0])
+        s_entries += Batches(w.slots, q, 1).entries(range(q))
+        slots.append(w.raw_slots)
+        sa += [k] * q
+        a = w.account
+        status, acct = plain.verify_accounts(*_plain_table(a), a.root.expand(1, 32), a.keys)
+        a_ref.append((status, acct))
+        ok = (status == plain.FOUND) & acct["ok"]
+        s_ref.append(plain.override(*plain.verify_slots(
+            *_plain_table(w.slots), acct["storage_root"].expand(q, 32), w.raw_slots),
+            ok.expand(q)))
+    a_status = torch.cat([s for s, _ in a_ref])
+    fields = {f: torch.cat([acct[f] for _, acct in a_ref])
+              for f in ("ok", "nonce", "balance", "storage_root", "code_hash")}
+    s_want = tuple(torch.cat(parts).numpy() for parts in zip(*s_ref))
+    return (pack_proofs(a_entries, **ACCOUNT_BUCKET), pack_proofs(s_entries, **SLOT_BUCKET),
+            torch.cat(slots).numpy(), np.asarray(sa, np.int32), (a_status, fields), s_want)
+
+
+def _assert_plain(a_status, acct, s_status, s_values, s_vlens, want_a, want_s):
+    """The port's two-level answers (numpy or tensors) equal the plain
+    reference's: every status, ok flag (where `acct` has one) and value
+    length; the fields of every FOUND, well-formed account; the bytes of
+    every value."""
+    w_status, w_fields = want_a
+    np.testing.assert_array_equal(np.asarray(a_status), w_status.numpy())
+    if "ok" in acct:
+        np.testing.assert_array_equal(np.asarray(acct["ok"]), w_fields["ok"].numpy())
+    good = (w_status.numpy() == mpt.FOUND) & w_fields["ok"].numpy()
+    for f in ("nonce", "balance", "storage_root", "code_hash"):
+        np.testing.assert_array_equal(np.asarray(acct[f])[good], w_fields[f].numpy()[good],
+                                      err_msg=f)
+    ws, wv, wl = want_s
+    np.testing.assert_array_equal(np.asarray(s_status), ws)
+    np.testing.assert_array_equal(np.asarray(s_vlens), wl)
+    mask = np.arange(wv.shape[1])[None, :] < wl[:, None]
+    np.testing.assert_array_equal(np.where(mask, np.asarray(s_values)[:, :wv.shape[1]], 0), wv)
+
+
+def _grouped_fields(res):
+    return {f: getattr(res, f) for f in ("nonce", "balance", "storage_root", "code_hash")}
+
+
+def test_storage_pooled_and_grouped_match_the_plain_reference():
+    ap, sp, slots, sa, want_a, want_s = _bench_case([_bench_world(2**35 + 3, 256, 1)])
+    assert (want_s[0] == mpt.FOUND).sum() == 255 and (want_s[0] == mpt.INVALID).sum() == 1
+    # the device-resident entry on tensors already on the device
+    at, st = packed_to_tensors(ap, "cpu"), packed_to_tensors(sp, "cpu", hints=False)
+    out = verify_storage_pooled(
+        [at[k] for k in BATCH_FIELDS], [at[k] for k in POOL_FIELDS], at["pool_hints"],
+        st["nodes"], st["node_lens"], st["num_nodes"], [st[k] for k in POOL_FIELDS],
+        torch.from_numpy(slots), torch.from_numpy(sa))
+    a_status, acct, s_status, s_values, s_vlens = out
+    assert s_values.shape == (256, 64)
+    _assert_plain(a_status, {k: v.numpy() for k, v in acct.items()}, s_status, s_values,
+                  s_vlens, want_a, want_s)
+    # the host-packed entry built on it
+    got = verify_storage_grouped(ap, sp, slots, sa, device="cpu")
+    _assert_plain(got.account_status, _grouped_fields(got), got.slot_status, got.slot_values,
+                  got.slot_value_lens, want_a, want_s)
+
+
+def test_storage_grouped_tampered_account_invalidates_its_slots_only():
+    worlds = [_bench_world(2**35 + 10 + k, 32, 0) for k in range(4)]
+    a = worlds[2].account
+    leaf = a.proof_nodes[0, a.proof_lens[0] - 1]
+    a.nodes = a.nodes.clone()
+    a.nodes[leaf, a.node_lens[leaf] - 1] ^= 1  # the code hash's last byte
+    ap, sp, slots, sa, want_a, want_s = _bench_case(worlds)
+    assert want_a[0].tolist() == [mpt.FOUND, mpt.FOUND, mpt.INVALID, mpt.FOUND]
+    assert (want_s[0][sa == 2] == mpt.INVALID).all() and (want_s[0][sa != 2] == mpt.FOUND).all()
+    got = verify_storage_grouped(ap, sp, slots, sa, device="cpu")
+    _assert_plain(got.account_status, _grouped_fields(got), got.slot_status, got.slot_values,
+                  got.slot_value_lens, want_a, want_s)

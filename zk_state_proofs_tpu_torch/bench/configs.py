@@ -49,7 +49,7 @@ import torch
 
 from ..models import (extract_erc20_transfers, run_merkle_circuit, run_storage_circuit,
                       sweep_entries, sweep_resident, sweep_resident_epochs, verify_block_receipts)
-from ..models.verifier import _storage_core_grouped
+from ..models.verifier import verify_storage_pooled
 from ..ops import mpt
 from ..ops.trie_build import compute_root
 from ..oracle import EthTrie, rlp
@@ -157,7 +157,7 @@ def _grouped_storage_batch(quick, seed, dev):
 
     def call(ctr):
         perturb(ctr, at["nodes"], at["pool_nodes"], st["nodes"], st["pool_nodes"], slots)
-        a_st, acct, s_st, s_v, s_vl = _storage_core_grouped(
+        a_st, acct, s_st, s_v, s_vl = verify_storage_pooled(
             [at[k] for k in BATCH_FIELDS], [at[k] for k in POOL_FIELDS], None,
             st["nodes"], st["node_lens"], st["num_nodes"], [st[k] for k in POOL_FIELDS],
             slots, sa)

@@ -12,7 +12,7 @@ from .verifier import (GroupedStorageVerifyResult, StorageVerifyResult,
                        VerifyResult, batch_commitment, diagnose_batch,
                        verify_account_batch, verify_merkle_batch,
                        verify_merkle_proof, verify_storage_batch,
-                       verify_storage_grouped)
+                       verify_storage_grouped, verify_storage_pooled)
 
 __all__ = [
     "BatchVerifier",
@@ -41,4 +41,5 @@ __all__ = [
     "verify_merkle_proof",
     "verify_storage_batch",
     "verify_storage_grouped",
+    "verify_storage_pooled",
 ]

@@ -23,6 +23,7 @@ from ..ops.account import decode_account
 from ..ops.keccak_cuda import keccak256_cuda
 from ..ops.rlp import bytes_to_nibbles_device
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..witness.pack import PackedProofs, pack_proofs
 from ..witness_bridge import BATCH_FIELDS, POOL_FIELDS, packed_to_tensors
 
@@ -155,27 +156,51 @@ def _storage_core(a_batch, s_nodes, s_lens, s_num, slots):
     return a_status, acct, s_status, s_values, s_vlens
 
 
-def _storage_core_grouped(a_batch, a_pool, a_hints, s_nodes, s_lens, s_num,
+def verify_storage_pooled(a_batch, a_pool, a_hints, s_nodes, s_lens, s_num,
                           s_pool, slots, slot_accounts):
-    """Grouped + pooled two-level verification: A unique accounts, B slots
-    and slot_accounts i32 [B], the account row of each slot. Each account
-    proof is verified once (pooled, `hinted` with the pack-time hints);
-    each slot's trusted root is its account's decoded storage_root (a row
-    gather); the slot level walks pooled without hints (`bounded`):
-    storage tries hold inline leaves, which would defer the hinted walk to
-    its exact re-run on every batch."""
-    a_status, a_values, a_vlens = mpt.verify_proofs_pooled(
-        *a_batch, *a_pool, a_hints, max_value_len=128)
-    acct = decode_account(a_values, a_vlens)
-    s_knib, s_klen = _slot_key_nibbles(slots)
-    sa = slot_accounts.to(torch.int64)
-    s_roots = torch.index_select(acct["storage_root"], 0, sa)
-    s_status, s_values, s_vlens = mpt.verify_proofs_pooled(
-        s_nodes, s_lens, s_num, s_roots, s_knib, s_klen, *s_pool,
-        max_value_len=64, hinted=False)
-    account_ok = (a_status == mpt.FOUND) & acct["ok"]
-    s_status = torch.where(torch.index_select(account_ok, 0, sa), s_status,
-                           mpt.INVALID)
+    """Grouped, pooled two-level verification on tensors that already lie
+    on one device (the reference's storage circuit,
+    storage-circuit/src/main.rs:6-31, over A accounts and B slots).
+
+    a_batch: the account level's BATCH_FIELDS tensors, a_pool its
+    POOL_FIELDS tensors and a_hints its pack-time pool hints (None: the
+    device hint pass makes them); s_nodes, s_lens, s_num and s_pool: the
+    slot level's table and pool (its key fields are not read: the keys
+    come from `slots`); slots u8 [B, >= 32] the raw slot keys, hashed on
+    the device from their first 32 bytes; slot_accounts int [B] the
+    account row of each slot. Returns (account status i32 [A], the decoded
+    account fields (ops.account.decode_account's dict, [A] rows), slot
+    status i32 [B], slot values u8 [B, 64], slot value lengths i32 [B]),
+    on the device, with every launch queued.
+
+    Each account proof is verified once (pooled, `hinted`); each slot's
+    trusted root is its account's decoded storage_root (a row gather); the
+    slot level walks pooled without hints (`bounded`): a storage trie
+    holds inline leaves (a leaf under 32 bytes, deep in the trie with a
+    small value: at 2^24 slots with 1-7-byte balances, about one proof in
+    2,000, two in a batch of 4096), on which a hinted walk latches and the
+    whole batch would be walked again in `exact`; `bounded` walks them
+    without its re-run. A slot under an account that is not FOUND, or
+    whose leaf does not decode, is INVALID. Spans: `zkp.storage` over the call, and inside it
+    `zkp.storage.account` (the account level and its decode),
+    `zkp.storage.slot_keys` (the slot hashing) and `zkp.storage.slots`
+    (the root gather, the slot level and the override)."""
+    with span("zkp.storage"):
+        with span("zkp.storage.account"):
+            a_status, a_values, a_vlens = mpt.verify_proofs_pooled(
+                *a_batch, *a_pool, a_hints, max_value_len=128)
+            acct = decode_account(a_values, a_vlens)
+        with span("zkp.storage.slot_keys"):
+            s_knib, s_klen = _slot_key_nibbles(slots)
+        with span("zkp.storage.slots"):
+            sa = slot_accounts.to(torch.int64)
+            s_roots = torch.index_select(acct["storage_root"], 0, sa)
+            s_status, s_values, s_vlens = mpt.verify_proofs_pooled(
+                s_nodes, s_lens, s_num, s_roots, s_knib, s_klen, *s_pool,
+                max_value_len=64, hinted=False)
+            account_ok = (a_status == mpt.FOUND) & acct["ok"]
+            s_status = torch.where(torch.index_select(account_ok, 0, sa), s_status,
+                                   mpt.INVALID)
     return a_status, acct, s_status, s_values, s_vlens
 
 
@@ -224,11 +249,11 @@ def _checked_slots(slots, batch: int):
 
 
 def _grouped(a: PackedProofs, s: PackedProofs, slots, sa, device):
-    """_storage_core_grouped on packed batches; numpy results."""
+    """verify_storage_pooled on packed batches; numpy results."""
     dev = resolve_device(device)
     at = packed_to_tensors(a, dev)
     st = packed_to_tensors(s, dev)
-    out = _storage_core_grouped(
+    out = verify_storage_pooled(
         [at[k] for k in BATCH_FIELDS], [at[k] for k in POOL_FIELDS],
         at["pool_hints"], st["nodes"], st["node_lens"], st["num_nodes"],
         [st[k] for k in POOL_FIELDS], torch.from_numpy(slots).to(dev),

@@ -219,7 +219,7 @@ def make_sharded_storage_verifier(mesh: Mesh):
     slot_accounts, active) -> (account_status [A], storage_roots [A, 32],
     slot_status [B], slot_values [B, 64], slot_value_lens [B],
     global_counts [3]), tensors on the rank's device."""
-    from ..models.verifier import _storage_core_grouped
+    from ..models.verifier import verify_storage_pooled
 
     ax = mesh.axis_names[0]
 
@@ -235,7 +235,7 @@ def make_sharded_storage_verifier(mesh: Mesh):
             (a_nodes, a_lens, a_num, a_roots, a_knib, a_klen), _BATCH_DTYPES)]
         a_pool = [rep(a_pn, np.uint8), rep(a_pl, np.int32), rep(a_pi, np.int32)]
         s_pool = [rep(s_pn, np.uint8), rep(s_pl, np.int32), shd(s_pi, np.int32)]
-        a_status, acct, s_status, s_values, s_vlens = _storage_core_grouped(
+        a_status, acct, s_status, s_values, s_vlens = verify_storage_pooled(
             a_batch, a_pool, None, shd(s_nodes, np.uint8), shd(s_lens, np.int32),
             shd(s_num, np.int32), s_pool, shd(slots, np.uint8),
             shd(slot_accounts, np.int32))
