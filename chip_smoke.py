@@ -54,7 +54,8 @@ Phases, each printing a line:
      three first walks queued before any guarded launch) and on the
      adversarial batch, the guarded launch walking exactly where one
      latched, every output equal to the plain route;
-  5. account path: three requests through BatchVerifier; every headline
+  5. account path: three requests through BatchVerifier, each packed pool
+     first, copied through a page-locked staging (bytes logged); every headline
      proof FOUND with the oracle's leaf; results equal the plain path on the
      card; K1, hinted and exact launched by the path;
   6. timings with CUDA events, kernel path against plain path (the pooled
@@ -532,9 +533,15 @@ def main() -> None:
                 adv_entries + inline_entries + entries[:N_ACCOUNTS // 8]]
     zero_counts()
     t0 = time.time()
-    results = [svc.verify(req) for req in requests]
+    results = []
+    for req in requests:
+        staged = svc.stats.staged_batches
+        results.append(svc.verify(req))
+        check(svc.stats.staged_batches == staged + 1,
+              f"request {len(results) - 1} did not take the pool-first route")
     torch.cuda.synchronize()
     serve_s = time.time() - t0
+    check(svc.pack(requests[0]).block.is_pinned(), "the pool-first block is not page-locked")
     launches = read_counts()
     for name in ("keccak256", "hinted", "exact", "exact_walked"):
         check(launches[name] > 0, f"the main path launched the {name} kernel no time")
@@ -559,7 +566,8 @@ def main() -> None:
     log(f"[5 main] served 3 requests ({', '.join(str(len(r)) for r in requests)} "
         f"proofs) in {serve_s:.3f} s host time incl. packing; headline "
         f"{head.counts()}; adversarial {adv_res.counts()}; all equal the plain "
-        f"path on the card; launches {launches}")
+        f"path on the card; launches {launches}; each packed pool first, "
+        f"{svc._pool_first[1]} staged bytes copied a request")
 
     stamp("phase 5 (accounts)")
 
@@ -2957,12 +2965,16 @@ def plain_storage(a_batch, a_pool, a_hints, s_nodes, s_lens, s_num, s_pool, slot
 
 
 def plain_service(svc, req):
-    """A request packed and routed as BatchVerifier.verify packs and routes
-    it, verified on the plain path on the card; (status, values,
-    value_lens) in request order."""
+    """A request packed as BatchVerifier's dense route packs it (the dense
+    table, pooled on the host) and routed as verify routes it, verified on
+    the plain path on the card; (status, values, value_lens) in request
+    order."""
     n = len(req)
     order = sorted(range(n), key=lambda i: -len(req[i][1]))
-    packed = svc.pack([req[i] for i in order])
+    bk = svc.bucket
+    packed = pack_proofs(svc._padded([req[i] for i in order]), max_nodes=bk.max_nodes,
+                         node_len=bk.node_len, key_nibbles=bk.key_nibbles)
+    packed.pool(min_rows=svc.pool_rows)
     t = packed_to_tensors(packed, svc.device)
     segs = svc._compatible_segments(packed) or ((packed.batch, packed.nodes.shape[1]),)
     psegs = svc._compatible_pool_segments(packed) or (

@@ -23,9 +23,9 @@ import torch
 from proofbench.drivers._common import Batches
 from proofbench.reference import storage as plain
 from proofbench.traffic._storage import make_storage_world
-from zk_state_proofs_tpu_torch.models import (replicated_batches, sweep, sweep_entries,
-                                              sweep_resident, sweep_resident_epochs,
-                                              verify_storage_pooled)
+from zk_state_proofs_tpu_torch.models import (BatchVerifier, replicated_batches, sweep,
+                                              sweep_entries, sweep_resident,
+                                              sweep_resident_epochs, verify_storage_pooled)
 from zk_state_proofs_tpu_torch.models.sweep import (_UPLOAD, _expand_tables, _upload,
                                                     _upload_arrays, epoch_tables)
 from zk_state_proofs_tpu_torch.oracle import EthTrie, keccak256, rlp
@@ -33,6 +33,7 @@ from zk_state_proofs_tpu_torch.ops import keccak as tkeccak
 from zk_state_proofs_tpu_torch.ops import decode_cuda, keccak_cuda, mpt, mpt_cuda
 from zk_state_proofs_tpu_torch.ops import rlp as rlp_ops
 from zk_state_proofs_tpu_torch.ops.account import decode_account, decode_account_plain
+from zk_state_proofs_tpu_torch.utils.config import BucketConfig
 from zk_state_proofs_tpu_torch.witness import host_item_offsets, pack_proofs
 from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, POOL_FIELDS,
                                                       account_entries,
@@ -340,6 +341,31 @@ def test_epoch_sweep_copies_the_witness_from_page_locked_memory(dev):
     r2 = _upload(locked, dev)
     assert r2["pinned_bytes"] == upload and not hasattr(locked, "_upload_staging")
     assert torch.equal(r2["dig"], r["dig"]) and torch.equal(r2["idx"], r["idx"])
+
+
+def test_service_stages_each_request_in_page_locked_memory(dev):
+    """The service's pool-first route on the card: a batch's block is
+    page-locked; requests with different pools queued back to back, with
+    no sync between them and each block freed once its copy is queued,
+    each equal the route that packs the dense table and copies it (so no
+    block is rewritten under a copy in flight), and so do requests served
+    one by one."""
+    entries, _ = account_entries(96)
+    svc = BatchVerifier(BucketConfig.account(), batch_size=64, device=dev)
+    svc.warmup(entries[:64])
+    assert svc.pack(entries[:64]).block.is_pinned()
+    requests = [entries[:64], entries[32:96], entries[64:90], entries[5:17]]
+    queued = [svc._verify_pool_first(svc.pack(req)) for req in requests]
+    for req, out in zip(requests, queued):
+        dense = pack_proofs(svc._padded(req), 12, 576, 64)
+        dense.pool(min_rows=svc.pool_rows)
+        want = svc._verify_packed(dense)
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+        res = svc.verify(req)
+        for g, w in zip((res.status, res.values, res.value_lens), want):
+            np.testing.assert_array_equal(g, w[:len(req)].cpu().numpy())
+    assert svc.stats.staged_batches == len(requests)
 
 
 # The walk kernel's three ways of holding node rows (csrc/mpt_walk.cu):

@@ -118,6 +118,8 @@ def _inside(child, parents) -> bool:
 
 def test_profiled_request_and_sweep_hold_every_span_nested(world, tmp_path,
                                                            monkeypatch):
+    svc = world[0]
+    staged = svc.stats.staged_batches
     # off: no span of the port enters record_function
     with monkeypatch.context() as m:
         m.setattr(torch.profiler, "record_function", _refuse)
@@ -131,6 +133,10 @@ def test_profiled_request_and_sweep_hold_every_span_nested(world, tmp_path,
     assert set(SERVICE_SPANS + SWEEP_SPANS + STORAGE_SPANS) == set(spans), sorted(spans)
     assert len(spans["zkp.service.verify"]) == 1 and len(spans["zkp.sweep"]) == 1
     assert len(spans["zkp.service.sort"]) == 2  # the sort, and the restore of order
+    # both requests were packed pool first, the packer's spans in the request's
+    assert svc.stats.staged_batches == staged + 2
+    for name in ("zkp.pack.proofs", "zkp.pack.pool", "zkp.copy_in"):
+        assert len(spans[name]) == 1 and _inside(spans[name][0], spans["zkp.service.verify"])
     # one loop span, and a span a window: 2 epochs of 3 windows of 16 rows
     assert len(spans["zkp.sweep.windows"]) == 1 and len(spans["zkp.sweep.window"]) == 6
     # one storage call: each level's pooled verify inside its own span

@@ -7,6 +7,7 @@ import importlib.util
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -36,6 +37,9 @@ from zk_state_proofs_tpu_torch.oracle import MissingKeyError, TrieError
 from zk_state_proofs_tpu_torch.ops import keccak_cuda
 from zk_state_proofs_tpu_torch.ops import mpt as tmpt
 from zk_state_proofs_tpu_torch.utils.config import BucketConfig
+from zk_state_proofs_tpu_torch.models.service import _PoolFirstProofs
+from zk_state_proofs_tpu_torch.witness.pack import PackingError
+from zk_state_proofs_tpu_torch.witness.pack import pack_proofs as port_pack_proofs
 from zk_state_proofs_tpu_torch.witness_bridge import (BATCH_FIELDS, POOL_FIELDS,
                                                       account_entries, mixed_batch,
                                                       packed_to_tensors,
@@ -250,6 +254,28 @@ def test_verify_account_batch_decodes_leaves():
         assert int.from_bytes(bytes(acct["balance"][i]), "big") == int.from_bytes(leaf[1], "big")
 
 
+def _packed_dense(svc, req):
+    """req packed as the service's dense route packs it: the port's
+    pack_proofs on the padded batch, its pool padded to the pinned rows."""
+    bk = svc.bucket
+    packed = port_pack_proofs(svc._padded(req), bk.max_nodes, bk.node_len, bk.key_nibbles)
+    packed.pool(min_rows=svc.pool_rows)
+    return packed
+
+
+def _hold_pool_first(got, want):
+    """A batch the service packed pool first, with no dense table built,
+    against the dense packer on the same padded batch, byte for byte: the
+    per-proof arrays (the dense table gathered from the pool on read), the
+    pool and its hints."""
+    assert isinstance(got, _PoolFirstProofs) and "nodes" not in vars(got)
+    for k, g, w in zip(BATCH_FIELDS + POOL_FIELDS + ("pool_hints",),
+                       got.astuple() + got.pool() + (got.pool_hints(),),
+                       want.astuple() + want.pool() + (want.pool_hints(),)):
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
 def test_batch_verifier_matches_jax_service():
     entries, _ = account_entries(96)
     proto = BatchVerifier(BucketConfig.account(), batch_size=64, device="cpu")
@@ -274,14 +300,48 @@ def test_batch_verifier_matches_jax_service():
          (b"\x31" * 32,) + entries[71][1:],
          (entries[0][0], entries[5][1], absent)] + entries[80:84],  # adversarial
     ]
+    served = []
     for req in requests:
         want, got = jsvc.verify(req), tsvc.verify(req)
         np.testing.assert_array_equal(got.status, want.status)
         np.testing.assert_array_equal(got.values, want.values)
         np.testing.assert_array_equal(got.value_lens, want.value_lens)
+        served.append(got)
     assert (got.status[:3] == tmpt.INVALID).all()
     assert tsvc.stats.batches == 3 and tsvc.stats.proofs == 64 + 26 + 7
     assert tsvc.stats.found == jsvc.stats.found
+    # every request took the pool-first route
+    assert tsvc.stats.staged_batches == 3
+    # its pass equals the dense packer on each request and on a trie whose nodes
+    # hold inline (< 32 B) children, and raises the packer's errors: a
+    # 13-node proof, a 577-byte node, a pool past the pinned rows
+    t = EthTrie()
+    keys = [keccak256(b"svc-inline-%d" % i)[:6] for i in range(48)]
+    for i, k in enumerate(keys):
+        t.insert(k, rlp.int_to_min_bytes(i + 1))
+    inline = [(t.root_hash(), t.get_proof(k), k) for k in keys[:16]]
+    for req in requests + [inline]:
+        _hold_pool_first(tsvc.pack(req), _packed_dense(tsvc, req))
+    rng = np.random.default_rng(5)
+    root, key = entries[0][0], entries[0][2]
+    for req in ([(root, [b"\x80"] * 13, key)], [(root, [b"\x01" * 577], key)],
+                [(root, [rng.bytes(100) for _ in range(12)], key)] * 4 + [
+                    (root, [rng.bytes(100) for _ in range(12)], e[2]) for e in entries[:60]]):
+        with pytest.raises(PackingError) as want:
+            _packed_dense(tsvc, req)
+        with pytest.raises(PackingError) as got:
+            tsvc.pack(req)
+        assert str(got.value) == str(want.value)
+    assert str(got.value).startswith("node pool needs")
+    # the staging serves on after the refused batches
+    again = tsvc.verify(requests[1])
+    np.testing.assert_array_equal(again.values, served[1].values)
+    np.testing.assert_array_equal(again.status, served[1].status)
+    # callers on several threads take turns at the staging
+    with ThreadPoolExecutor(3) as workers:
+        for res, want in zip(workers.map(tsvc.verify, requests * 2), served * 2):
+            np.testing.assert_array_equal(res.values, want.values)
+            np.testing.assert_array_equal(res.status, want.status)
     # a one-rank mesh (no process group) serves the same results
     from zk_state_proofs_tpu_torch.parallel import make_mesh
 
@@ -291,6 +351,12 @@ def test_batch_verifier_matches_jax_service():
         want, got = tsvc.verify(req), msvc.verify(req)
         for f in ("status", "values", "value_lens"):
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    # neither the mesh nor a service without dedup packs pool first
+    plain = BatchVerifier(BucketConfig.account(), batch_size=64, dedup=False, device="cpu")
+    got = plain.verify(requests[2])
+    np.testing.assert_array_equal(got.values, served[2].values)
+    assert msvc.stats.staged_batches == plain.stats.staged_batches == 0
+    assert msvc._pool_first is None and plain._pool_first is None
 
 
 def test_packed_to_tensors_roundtrip(headline_256):

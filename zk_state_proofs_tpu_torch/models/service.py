@@ -6,15 +6,27 @@ one pinned padding bucket and verified through the pooled main path on the
 service's device. Pinned depth and pool segment schedules route a batch
 through the segmented walk / segmented pool hash only when the batch fits
 them; any other batch takes the unsegmented route, with identical results.
+
+Pool-first packing: where the native library loads, a warm service with
+no mesh and with dedup packs a batch by one native pass straight from its
+entries into its unique-node pool (`native.pack_pool_native`), written
+into one host block, page-locked on a card. A request copies that block
+to the device in one copy; the device gathers the per-proof node table
+from the pool. No dense [B, D, N] table is built on the host or copied.
+Any other service packs the dense table and copies it with
+`packed_to_tensors`.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
+import torch
 
+from .. import native
 from ..ops import mpt
 from ..oracle import EthTrie, keccak256
 from ..utils.config import BucketConfig
@@ -35,10 +47,67 @@ class ServiceStats:
     excluded: int = 0
     invalid: int = 0
     seconds: float = 0.0
+    staged_batches: int = 0  # requests served by the pool-first route
 
     @property
     def proofs_per_sec(self) -> float:
         return self.proofs / max(self.seconds, 1e-9)
+
+
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32}
+
+
+def _pool_first_layout(batch: int, bucket: BucketConfig, pool_rows: int) -> tuple:
+    """([(name, dtype, shape, offset, size), ...], bytes) of one block
+    holding the arrays of native.pool_pass_layout, each 256-byte aligned."""
+    layout, offs = [], 0
+    for name, dtype, shape in native.pool_pass_layout(
+            batch, bucket.max_nodes, bucket.node_len, bucket.key_nibbles, pool_rows):
+        size = int(np.prod(shape)) * dtype.itemsize
+        layout.append((name, dtype, shape, offs, size))
+        offs += -(-size // 256) * 256
+    return layout, offs
+
+
+class _PoolFirstProofs(PackedProofs):
+    """A batch packed pool first (native.pack_pool_native) into `block`, a
+    uint8 tensor of its own laid out by _pool_first_layout: `arrays`, its
+    NumPy views by name, are the pool, hints and per-proof scalars as the
+    pass wrote them. The dense node table and its lengths, which the
+    pool-first route never reads, are gathered from the pool by pool_idx
+    on first read; they equal pack_proofs's byte for byte.
+
+    For a CUDA device the block is page-locked, from PyTorch's caching
+    host allocator, which hands a block out again only once the copies
+    recorded on it have ended: one request's block is the next one's,
+    allocated at warm-up, and is never rewritten under a copy in flight."""
+
+    def __init__(self, block: torch.Tensor, layout):
+        self.block, self.layout = block, layout
+        host = block.numpy()
+        self.arrays = {name: host[off:off + size].view(dtype).reshape(shape)
+                       for name, dtype, shape, off, size in layout}
+        for name in ("num_nodes", "roots", "key_nibbles", "key_lens", *POOL_FIELDS):
+            setattr(self, name, self.arrays[name])
+        self._pool_hints = self.arrays["pool_hints"]
+
+    @property
+    def batch(self) -> int:
+        return self.num_nodes.shape[0]
+
+    @cached_property
+    def nodes(self) -> np.ndarray:
+        return self.pool_nodes[self.pool_idx]
+
+    @cached_property
+    def node_lens(self) -> np.ndarray:
+        return self.pool_lens[self.pool_idx]
+
+    def to_device(self, device) -> dict:
+        """The block on `device`, one non-blocking copy; its tensors by name."""
+        on = self.block.to(device, non_blocking=True)
+        return {name: on[off:off + size].view(_TORCH_DTYPES[dtype]).view(shape)
+                for name, dtype, shape, off, size in self.layout}
 
 
 class BatchVerifier:
@@ -68,6 +137,10 @@ class BatchVerifier:
                 mesh's device, which serves. Requests are not depth-sorted
                 and the pinned schedules are not used, as in the JAX
                 service. batch_size must divide by the mesh size.
+
+    Once warm, without a mesh, with dedup and with the native library,
+    `pack` packs pool first and `verify` copies only the pool (the
+    module's docstring; `stats.staged_batches` counts those requests).
     """
 
     def __init__(self, bucket: BucketConfig, batch_size: int = 4096,
@@ -87,12 +160,11 @@ class BatchVerifier:
         self.pool_segments = pool_segments
         self.stats = ServiceStats()
         self._warm = False
+        self._pool_first = None  # (layout, bytes) of its blocks, set by warmup
 
     # -- packing ---------------------------------------------------------
-    def pack(self, entries) -> PackedProofs:
-        """Pack raw (root, proof, key) entries into the pinned bucket,
-        padding the batch dimension to `batch_size`. Raises PackingError
-        if any proof exceeds the bucket."""
+    def _padded(self, entries) -> list:
+        """entries padded to `batch_size` rows; PackingError past it."""
         entries = list(entries)
         if len(entries) > self.batch_size:
             raise PackingError(
@@ -103,7 +175,16 @@ class BatchVerifier:
             # empty proof + non-empty root rows verify INVALID (root
             # unfindable) and are sliced off in verify()
             entries = entries + [(b"\x00" * 31 + b"\x01", [], b"\x00")] * n_pad
+        return entries
+
+    def pack(self, entries) -> PackedProofs:
+        """Pack raw (root, proof, key) entries into the pinned bucket,
+        padding the batch dimension to `batch_size`. Raises PackingError
+        if any proof exceeds the bucket."""
+        entries = self._padded(entries)
         with span("zkp.pack"):
+            if self._pool_first is not None:
+                return self._pack_pool_first(entries)
             with span("zkp.pack.proofs"):
                 packed = pack_proofs(
                     entries, max_nodes=self.bucket.max_nodes,
@@ -114,6 +195,21 @@ class BatchVerifier:
                 with span("zkp.pack.pool"):
                     packed.pool(min_rows=self.pool_rows)
             return packed
+
+    def _pack_pool_first(self, entries) -> _PoolFirstProofs:
+        """Padded entries packed pool first: the pool, hints and scalars
+        of `pack_proofs(entries).pool(min_rows=pool_rows)` and its
+        `pool_hints()`, with the same PackingErrors."""
+        (layout, nbytes), bk = self._pool_first, self.bucket
+        with span("zkp.pack.proofs"):
+            encoded = native.encode_entries(entries)
+        with span("zkp.pack.pool"):
+            block = torch.empty(nbytes, dtype=torch.uint8,
+                                pin_memory=self.device.type == "cuda")
+            packed = _PoolFirstProofs(block, layout)
+            native.pack_pool_native(encoded, bk.max_nodes, bk.node_len, bk.key_nibbles,
+                                    packed.arrays)
+        return packed
 
     # -- lifecycle -------------------------------------------------------
     def warmup(self, example_entries=None) -> float:
@@ -133,18 +229,22 @@ class BatchVerifier:
             probe = self.pack(example_entries)
             rows = int(probe.pool()[0].shape[0])
             self.pool_rows = -(-int(rows * 1.25) // 128) * 128
-        t0 = time.perf_counter()
-        packed = self.pack(example_entries)
         if self.pool_segments is not None and self.dedup:
-            rows = int(packed.pool()[0].shape[0])
             want = sum(c for c, _ in self.pool_segments)
-            if want != rows:
+            if want != self.pool_rows:
                 raise ValueError(
                     f"pinned pool_segments cover {want} rows but the "
-                    f"pinned pool bucket is {rows} — derive the schedule "
+                    f"pinned pool bucket is {self.pool_rows} — derive the schedule "
                     f"from a batch packed into THIS service's bucket "
                     f"(PackedProofs.pool_block_segments on svc.pack(...))")
-        self._verify_packed(packed)
+        t0 = time.perf_counter()
+        if (self._pool_first is None and self.mesh is None and self.dedup
+                and native.available()):
+            self._pool_first = _pool_first_layout(self.batch_size, self.bucket,
+                                                  self.pool_rows)
+        packed = self.pack(example_entries)
+        verify = self._verify_pool_first if self._pool_first is not None else self._verify_packed
+        verify(packed)
         if self.dedup and self.mesh is None:
             seg_opts = ({None} if self.depth_segments is None
                         else {None, self.depth_segments})
@@ -155,8 +255,7 @@ class BatchVerifier:
             for so in seg_opts:
                 for po in ps_opts:
                     if (so, po) not in done:
-                        self._verify_packed(packed, force_segments=so,
-                                            force_pool_segments=po)
+                        verify(packed, force_segments=so, force_pool_segments=po)
                         done.add((so, po))
         self._warm = True
         return time.perf_counter() - t0
@@ -180,6 +279,27 @@ class BatchVerifier:
         batch = [t[k] for k in BATCH_FIELDS]
         if not self.dedup:
             return mpt.verify_proofs(*batch, max_value_len=mvl)
+        return self._verify_pooled(batch, t, packed, force_segments, force_pool_segments)
+
+    def _verify_pool_first(self, packed: _PoolFirstProofs, force_segments=_UNSET,
+                       force_pool_segments=_UNSET):
+        """Device tensors (status, values, value_lens) of a batch packed
+        pool first: its block copied in, then the per-proof node rows and
+        lengths gathered on the device from the pool by the pool index
+        (padding rows and rows past num_nodes take the zero row 0)."""
+        with span("zkp.copy_in"):
+            t = packed.to_device(self.device)
+            b, d = t["pool_idx"].shape
+            flat = t["pool_idx"].view(b * d)
+            nodes = torch.index_select(t["pool_nodes"], 0, flat).view(b, d, -1)
+            node_lens = torch.index_select(t["pool_lens"], 0, flat).view(b, d)
+        batch = [nodes, node_lens, *(t[k] for k in BATCH_FIELDS[2:])]
+        return self._verify_pooled(batch, t, packed, force_segments, force_pool_segments)
+
+    def _verify_pooled(self, batch, t, packed, force_segments, force_pool_segments):
+        """verify_proofs_pooled on the batch tensors and the pool tensors
+        of `t`, with the pinned schedules the packed batch fits (or those
+        forced)."""
         segs = (self._compatible_segments(packed)
                 if force_segments is BatchVerifier._UNSET else force_segments)
         psegs = (self._compatible_pool_segments(packed)
@@ -187,7 +307,8 @@ class BatchVerifier:
                  else force_pool_segments)
         return mpt.verify_proofs_pooled(
             *batch, *(t[k] for k in POOL_FIELDS), t["pool_hints"],
-            max_value_len=mvl, depth_segments=segs, pool_segments=psegs)
+            max_value_len=self.bucket.max_value_len, depth_segments=segs,
+            pool_segments=psegs)
 
     def _compatible_segments(self, packed: PackedProofs):
         """The pinned segment schedule iff this (depth-sorted) batch fits
@@ -241,7 +362,8 @@ class BatchVerifier:
                     order = sorted(range(n), key=lambda i: -len(entries[i][1]))
                     entries = [entries[i] for i in order]
             packed = self.pack(entries)
-            out = self._verify_packed(packed)
+            out = (self._verify_pool_first(packed) if self._pool_first is not None
+                   else self._verify_packed(packed))
             with span("zkp.to_host"):
                 status, values, vlens = (x.cpu().numpy()[:n] for x in out)
             if order is not None:
@@ -259,4 +381,6 @@ class BatchVerifier:
         s.excluded += c["excluded"]
         s.invalid += c["invalid"]
         s.seconds += dt
+        if self._pool_first is not None:
+            s.staged_batches += 1
         return res

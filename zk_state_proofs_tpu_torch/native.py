@@ -1,11 +1,12 @@
-"""ctypes bindings for the native host runtime (`native/zkp_host.cpp`).
+"""ctypes bindings for the native host runtime (`native/zkp_host.cpp` and
+the port's own `pool_pack.cpp`).
 
-The port's own counterpart of `zk_state_proofs_tpu.native`. The C++ source
-sits at the repository root; it is compiled with g++ at first use, on the
+The port's own counterpart of `zk_state_proofs_tpu.native`. Both C++
+sources are compiled with g++ into one library at first use, on the
 machine that runs it, into the gitignored `_kernels_build/` beside the
-package (keyed on a hash of the source and flags). The build is portable
+package (keyed on a hash of the sources and flags). The build is portable
 (no `-march=native`), so a library built on one host runs on another.
-Without g++ or the source every caller takes its pure-Python fallback:
+Without g++ or the sources every caller takes its pure-Python fallback:
 same results, slower host packing and hashing.
 """
 
@@ -15,12 +16,13 @@ import ctypes
 import hashlib
 import os
 import subprocess
+from itertools import chain
 from pathlib import Path
 
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent
-_SRC = _PKG.parent / "native" / "zkp_host.cpp"
+_SRCS = (_PKG.parent / "native" / "zkp_host.cpp", _PKG / "pool_pack.cpp")
 BUILD_DIR = _PKG / "_kernels_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
@@ -30,10 +32,11 @@ _load_failed = False
 
 def _build() -> Path | None:
     """Path of the built library (building it if needed), or None."""
-    if not _SRC.exists():
+    if not all(src.exists() for src in _SRCS):
         return None
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(_SRC.read_bytes())
+    for src in _SRCS:
+        h.update(src.read_bytes())
     out_dir = BUILD_DIR / f"host-{h.hexdigest()[:16]}"
     so = out_dir / "libzkp_host.so"
     if so.exists():
@@ -41,7 +44,7 @@ def _build() -> Path | None:
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"libzkp_host.{os.getpid()}.tmp.so"
     try:
-        subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
+        subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, _SRCS)],
                        check=True, capture_output=True, timeout=300)
     except (OSError, subprocess.SubprocessError):
         return None
@@ -77,6 +80,10 @@ def get_lib():
     lib.zkp_item_offsets.restype = None
     lib.zkp_item_offsets.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.zkp_pack_pool.restype = ctypes.c_int
+    lib.zkp_pack_pool.argtypes = (
+        [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p,
+         ctypes.c_char_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9)
     _lib = lib
     return _lib
 
@@ -165,28 +172,45 @@ def item_offsets_native(rows):
     return out
 
 
+def _offsets(parts) -> np.ndarray:
+    """i64 [len(parts) + 1]: where each of `parts` starts in their join."""
+    out = np.zeros(len(parts) + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, parts), dtype=np.int64, count=len(parts)), out=out[1:])
+    return out
+
+
+def encode_entries(entries) -> tuple:
+    """The native packers' inputs from (root, proof, key) entries:
+    (node_blob, node_offsets i64 [T + 1], counts i32 [B], roots_blob,
+    key_blob, key_offsets i64 [B + 1]), every proof's nodes joined in
+    order."""
+    roots, proofs, keys = zip(*entries)
+    nodes = list(chain.from_iterable(proofs))
+    counts = np.fromiter(map(len, proofs), dtype=np.int32, count=len(proofs))
+    return (b"".join(nodes), _offsets(nodes), counts, b"".join(roots), b"".join(keys),
+            _offsets(keys))
+
+
+def _bucket_error(rc: int, max_nodes: int, node_len: int, key_nibbles: int):
+    from .witness.pack import PackingError
+
+    return PackingError(f"proof {rc - 1} exceeds bucket (max_nodes={max_nodes}, "
+                        f"node_len={node_len}, key_nibbles={key_nibbles})")
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
 def pack_proofs_native(entries, max_nodes: int, node_len: int, key_nibbles: int):
     """Native packing path for witness.pack_proofs. Returns the packed
     numpy arrays, or None without the native library."""
     lib = get_lib()
     if lib is None:
         return None
-    b = len(entries)
-    node_blob_parts, counts, roots, key_parts = [], [], [], []
-    for root, proof, key in entries:
-        counts.append(len(proof))
-        node_blob_parts.extend(proof)
-        roots.append(root)
-        key_parts.append(key)
-    node_blob = b"".join(node_blob_parts)
-    node_offsets = np.zeros(len(node_blob_parts) + 1, dtype=np.int64)
-    np.cumsum([len(n) for n in node_blob_parts], out=node_offsets[1:])
-    key_blob = b"".join(key_parts)
-    key_offsets = np.zeros(b + 1, dtype=np.int64)
-    np.cumsum([len(k) for k in key_parts], out=key_offsets[1:])
-    counts_arr = np.asarray(counts, dtype=np.int32)
-    roots_blob = b"".join(roots)
-
+    node_blob, node_offsets, counts, roots_blob, key_blob, key_offsets = \
+        encode_entries(entries)
+    b = len(counts)
     nodes = np.empty((b, max_nodes, node_len), dtype=np.uint8)
     node_lens = np.empty((b, max_nodes), dtype=np.int32)
     num_nodes = np.empty(b, dtype=np.int32)
@@ -195,23 +219,63 @@ def pack_proofs_native(entries, max_nodes: int, node_len: int, key_nibbles: int)
     key_lens = np.empty(b, dtype=np.int32)
 
     rc = lib.zkp_pack_proofs(
-        ctypes.c_char_p(node_blob),
-        node_offsets.ctypes.data_as(ctypes.c_void_p),
-        counts_arr.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_char_p(roots_blob),
-        ctypes.c_char_p(key_blob),
-        key_offsets.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_char_p(node_blob), _ptr(node_offsets), _ptr(counts),
+        ctypes.c_char_p(roots_blob), ctypes.c_char_p(key_blob), _ptr(key_offsets),
         b, max_nodes, node_len, key_nibbles,
-        nodes.ctypes.data_as(ctypes.c_void_p),
-        node_lens.ctypes.data_as(ctypes.c_void_p),
-        num_nodes.ctypes.data_as(ctypes.c_void_p),
-        out_roots.ctypes.data_as(ctypes.c_void_p),
-        knib.ctypes.data_as(ctypes.c_void_p),
-        key_lens.ctypes.data_as(ctypes.c_void_p),
+        _ptr(nodes), _ptr(node_lens), _ptr(num_nodes), _ptr(out_roots), _ptr(knib),
+        _ptr(key_lens),
     )
     if rc != 0:
-        from .witness.pack import PackingError
-
-        raise PackingError(f"proof {rc - 1} exceeds bucket (max_nodes={max_nodes}, "
-                           f"node_len={node_len}, key_nibbles={key_nibbles})")
+        raise _bucket_error(rc, max_nodes, node_len, key_nibbles)
     return nodes, node_lens, num_nodes, out_roots, knib, key_lens
+
+
+def pool_pass_layout(batch: int, max_nodes: int, node_len: int, key_nibbles: int,
+                     pool_rows: int) -> tuple:
+    """(name, dtype, shape) of each array zkp_pack_pool writes, in its
+    argument order."""
+    u8, i32 = np.dtype(np.uint8), np.dtype(np.int32)
+    return (("pool_nodes", u8, (pool_rows, node_len)), ("pool_lens", i32, (pool_rows,)),
+            ("pool_hints", u8, (pool_rows, 36)), ("pool_idx", i32, (batch, max_nodes)),
+            ("num_nodes", i32, (batch,)), ("roots", u8, (batch, 32)),
+            ("key_nibbles", u8, (batch, key_nibbles)), ("key_lens", i32, (batch,)))
+
+
+def pack_pool_native(encoded, max_nodes: int, node_len: int, key_nibbles: int,
+                     out: dict) -> int:
+    """Pool-first packing (zkp_pack_pool): `encoded` entries
+    (encode_entries) straight into `out`, C-contiguous NumPy arrays laid
+    out as pool_pass_layout gives them for the batch and R =
+    out["pool_nodes"].shape[0] pool rows, every byte of which it writes:
+    byte for byte `witness.pack_proofs(entries, max_nodes, node_len,
+    key_nibbles).pool(min_rows=R)`, its `pool_hints()` and its per-proof
+    scalars. Returns the pool rows used; raises the PackingError that
+    pack_proofs or pool() raises for the batch, and ValueError for an
+    `out` array of another dtype, shape or layout. The native library must
+    load (available)."""
+    from .witness.pack import PackingError
+
+    node_blob, node_offsets, counts, roots_blob, key_blob, key_offsets = encoded
+    b = len(counts)
+    if len(roots_blob) != 32 * b:
+        raise PackingError("root must be 32 bytes")
+    pool_rows = out["pool_nodes"].shape[0]
+    layout = pool_pass_layout(b, max_nodes, node_len, key_nibbles, pool_rows)
+    for name, dtype, shape in layout:
+        a = out[name]
+        if a.dtype != dtype or a.shape != shape or not a.flags.c_contiguous:
+            raise ValueError(f"{name}: {a.dtype} {a.shape} is not a C-contiguous "
+                             f"{dtype} {shape}")
+    used = ctypes.c_int32(0)
+    rc = get_lib().zkp_pack_pool(
+        ctypes.c_char_p(node_blob), _ptr(node_offsets), _ptr(counts),
+        ctypes.c_char_p(roots_blob), ctypes.c_char_p(key_blob), _ptr(key_offsets),
+        b, max_nodes, node_len, key_nibbles, pool_rows,
+        *(_ptr(out[name]) for name, _, _ in layout), ctypes.byref(used),
+    )
+    if rc > 0:
+        raise _bucket_error(rc, max_nodes, node_len, key_nibbles)
+    if rc < 0:
+        raise PackingError(f"node pool needs {-(-used.value // 128) * 128} rows > bucket "
+                           f"pool_rows={pool_rows}")
+    return used.value
