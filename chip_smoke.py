@@ -61,15 +61,14 @@ Phases, each printing a line:
   6. timings with CUDA events, kernel path against plain path (the pooled
      verify, K1, and K2 in every hinted mode and exact, on the headline),
      and a torch.profiler breakdown of the headline pooled verify; its
-     launches a call (the guard kernel 0) and the folded flag on each of
-     its segments;
+     launches a call (a first walk and a guarded exact launch a depth
+     segment) and the folded flag on each of its segments;
   7. K2 in mode bounded against its plain version: the full-width slot
      batch, crafted over-bound nodes (latch, then the exact re-run), a trie
      with inline children (served without a latch), the adversarial batch;
   8. K3 (keccak from raw words, a warp a message) against its plain
-     version, the one-thread K3 it replaced and K1: edge lengths at widths
-     576 and 573 and the headline pool, with an oracle sample; its time
-     beside K1's and the one-thread K3's;
+     version and K1: edge lengths at widths 576 and 573 and the headline
+     pool, with an oracle sample; its time beside K1's;
   9. storage path: every account and slot FOUND with the oracle's values;
      equal to the plain path on the card and to verify_storage_batch (both
      dedup forms) on a 1:1 subset; a tampered account proof turns exactly
@@ -100,19 +99,9 @@ Phases, each printing a line:
      the C++ host hasher against K1 on every row of it, multi-block rows),
      the share of K2's value copy at that geometry, K4 on its pool, and
      config 1's call (no pack-time hints) before and after K4;
- 14. A/B of K1, K2 and K3 against the one-thread kernels that came before
-     them (a thread per message, a thread per proof), on one card, in turns
-     (old, new, new, old), device time from queued CUDA events: K2 in all
-     seven modes on the headline segments, bounded and exact on the slot
-     batch, hinted at transaction geometry with and without the value copy,
-     K1 on the two headline pool segments and the transaction pool, K3 on
-     the headline pool; K2 hinted on the headline with and without the
-     folded flag's store; the re-run route with the flag folded in against
-     the guard kernel's route (the guard kernel plus the guarded exact), on
-     the headline and on corrupted hints; each batch's results from the two
-     sides equal bit for bit. Printed as lines and as one JSON object
-     {"ab": [...]}; before them, K2's dynamic shared memory and staging on
-     the headline, slot and transaction batches;
+ 14. K2's layout: its lanes a proof, dynamic shared memory a proof and a
+     block, and how it stages node rows, on a headline segment, the slot
+     batch and the transaction-geometry batch;
  15. sweeps at config 5's size: the 65,536-account world (every node
      shorter than N, so the epoch counter lands on padding), the epoch
      sweep (16 epochs, 1,048,576 proofs, after a warm-up with another salt:
@@ -125,10 +114,10 @@ Phases, each printing a line:
      route on the card, the guarded `exact` walk run; the batch loops of
      the epoch, fused and entries sweeps under
      torch.cuda.set_sync_debug_mode("error"); proofs/s per form, pack /
-     dispatch / drain seconds, launches per batch (the guard kernel 0) and
-     the device-busy share of an epoch batch; the folded flag on an epoch
-     window of the world and of the mixed witness; the baseline guard
-     kernel against its plain version; then the sweep's upload on config
+     dispatch / drain seconds, launches per batch (one first walk and one
+     guarded exact) and the device-busy share of an epoch batch; the folded
+     flag on an epoch window of the world and of the mixed witness; then
+     the sweep's upload on config
      5's witness: its arrays copied to the card from the page-locked
      staging the resident sweeps copy from and by a plain pageable
      `.to(dev)`, in turns, host ms to the copies' end and GB/s of each,
@@ -198,8 +187,8 @@ K1 is a warp per message and K2 a warp per proof over a shared-memory slab
 (csrc/keccak.cu, csrc/mpt_walk.cu); K2's `exact` re-run is decided on the
 card with no launch of its own: the first walk stores its tag into a slot
 of a device flag ring where a proof latched, and the guarded `exact`
-launch walks only where the slot holds the tag; no path launches the
-guard kernel that came before (csrc/mpt_walk.cu). The build phase prints
+launch walks only where the slot holds the tag (csrc/mpt_walk.cu). The
+build phase prints
 ptxas's registers and spills (and static shared memory) for each kernel. Each
 phase prints its seconds, and the run its total. Any failed check exits
 non-zero. The next-to-last line is a JSON object of the kernels; the last
@@ -230,9 +219,9 @@ try:
     from zk_state_proofs_tpu_torch.bench.common import (HBM_BYTES_PER_S, INT32_OPS_PER_S,
                                                         Step, account_bound, card_info,
                                                         hint_pass_bound, keccak_bound,
-                                                        least_time, perturb, pooled_call,
-                                                        read_counts, seg_offsets, value_word,
-                                                        walk_bound, wall_ms, zero_counts)
+                                                        perturb, pooled_call, read_counts,
+                                                        seg_offsets, value_word, walk_bound,
+                                                        wall_ms, zero_counts)
     from zk_state_proofs_tpu_torch.__main__ import main as cli_main
     from zk_state_proofs_tpu_torch.entry import dryrun_multichip
     from zk_state_proofs_tpu_torch.models import (BatchVerifier, decode_receipt_value,
@@ -510,8 +499,7 @@ def main() -> None:
         f"on headline segment 0 with {latched} proofs latched (three first walks queued "
         f"before any guarded launch) and the adversarial batch ({adv_latched[0]} latched); "
         f"the guarded exact launch walked exactly where a proof latched, every output "
-        f"(status, value, length, reason) == the plain route; no guard kernel launched; "
-        f"max abs err {fold_err}")
+        f"(status, value, length, reason) == the plain route; max abs err {fold_err}")
 
     stamp("witness and phases 3-4 (K1, K2)")
 
@@ -545,7 +533,6 @@ def main() -> None:
     launches = read_counts()
     for name in ("keccak256", "hinted", "exact", "exact_walked"):
         check(launches[name] > 0, f"the main path launched the {name} kernel no time")
-    check(launches["guard"] == 0, "the main path launched the guard kernel")
     head = results[0]
     check(head.status.shape == (N_ACCOUNTS,) and head.values.shape == (N_ACCOUNTS, 128),
           "unexpected result shapes")
@@ -609,9 +596,11 @@ def main() -> None:
                              depth_segments=segs, pool_segments=psegs)
     per_call = {k: v - before[k] for k, v in {**keccak_cuda.LAUNCHES, **mpt_cuda.LAUNCHES}.items()
                 if v != before[k]}
-    check("guard" not in per_call, "the headline pooled verify launched the guard kernel")
-    log(f"[6 launches] a headline pooled verify: wrapper launches {per_call}, the guard "
-        f"kernel 0; {prof['launches']:.0f} device launches a call (torch.profiler, above); "
+    check(per_call.get("hinted") == per_call.get("exact") == len(segs),
+          f"a headline pooled verify launched {per_call}: one hinted and one exact launch "
+          f"a depth segment expected")
+    log(f"[6 launches] a headline pooled verify: wrapper launches {per_call}; "
+        f"{prof['launches']:.0f} device launches a call (torch.profiler, above); "
         f"the folded re-run flag == guard_plain on each of its {len(segs)} segments")
 
     k1_ms = cuda_timer(lambda i: mpt._hash_pool_rows(pn, pl, psegs), TIMED_ITERS)
@@ -648,8 +637,8 @@ def main() -> None:
     hm = phase_hint_modes(hctx, adv_ctx, txw, dev)
     blk = phase_blocks(txw, repo, dev)
     bt = phase_block_timings(hctx, txw, hm["tx_result"], card)
-    ab = phase_ab(head_segs, max_steps, slot_args, txw, pn, pl, psegs, card)
-    stamp("phases 11-14 (hint modes, blocks, A/B)")
+    phase_layout(head_segs, max_steps, slot_args, txw)
+    stamp("phases 11-14 (hint modes, blocks, K2's layout)")
     kn = batch[4].shape[1]
     bound = {"k1": keccak_bound(pl, psegs), "k3": keccak_bound(pl, ((pn.shape[0], pn.shape[1]),)),
              "hinted": walk_bound(batch[0], batch[1], batch[2], kn, 128, True),
@@ -716,6 +705,10 @@ def main() -> None:
     kernels[-1]["bound_ms_by_path"] = {p: r["bound"]["k1"][0] for p, r in (
         ("mixed", mixed), ("distinct_1m", distinct))}
     kernels[-1]["ms_by_path"] = {"distinct_1m": distinct["ms"]["k1"]}
+    # the `exact` row's error includes the re-run's: the flag folded into
+    # the first walk against guard_plain, the guarded launch's outputs
+    # against the plain route (phases 4, 6 and 15)
+    k2_err["exact"] = max(k2_err["exact"], fold_err, swp["err"]["fold"])
     for mode in ("hinted", "exact"):
         kernels.append(kernel_row(
             f"mpt_walk_{mode}", src + "mpt_walk.cu",
@@ -735,30 +728,11 @@ def main() -> None:
         "mpt_walk_bounded", src + "mpt_walk.cu",
         "zk_state_proofs_tpu/ops/mpt_pallas.py:165", by_path, "bounded",
         bnd["err"], sto["bounded_ms"], sto["bounded_plain_ms"], sto["bounded_bound"]))
-    # the guard of the `exact` re-run (the predicate of the TPU path's
-    # jax.lax.cond, which has no Pallas kernel), folded into K2's first
-    # walk: no launch of its own (the baseline guard kernel's count stays 0
-    # on every path); its time is the flag store's share of K2 `hinted` on
-    # the headline (phase 14, with against without, in turns); its error
-    # the folded flag's and the baseline guard kernel's against guard_plain
-    g = swp["guard"]
-    store = next(r for r in ab if r["kernel"] == "K2 flag store")
-    store_ms = (None if None in (store["new_us"], store["old_us"])
-                else (store["new_us"] - store["old_us"]) / 1e3)
-    kernels.append(kernel_row(
-        "mpt_walk_guard", src + "mpt_walk.cu", "zk_state_proofs_tpu/ops/mpt_pallas.py:981",
-        by_path, "guard", max(g["err"], fold_err, swp["err"]["fold"]), store_ms,
-        g["plain_ms"], g["bound"]))
-    kernels[-1].update(library_ms=g["library_ms"], design="folded into K2's first walk",
-                       hinted_us={"without_store": store["old_us"], "with_store": store["new_us"]},
-                       guard_kernel={"ms": g["ms"], "device_us": g["device_us"]})
     # K3 is on no main path (as in the JAX package): 0 launches there
     kernels.append(kernel_row(
         "keccak256_raw", src + "keccak.cu", "zk_state_proofs_tpu/ops/keccak_pallas.py:211",
         by_path, "keccak256_raw", k3["err"], k3["ms"], k3["plain_ms"], bound["k3"]))
-    k3_ab = next(r for r in ab if r["kernel"] == "K3")
-    kernels[-1]["device_us"] = {"one_thread": k3_ab["old_us"], "warp": k3_ab["new_us"],
-                                "k1": k3["device_us"]["K1"]}
+    kernels[-1]["device_us"] = {"k3": k3["device_us"]["K3"], "k1": k3["device_us"]["K1"]}
     # K4 and K5: the JAX package's device stages, not Pallas kernels; times
     # at config 4's pool (K4) and phase 10's account values (K5)
     k4, k5 = mixed["k4"], sto["k5"]
@@ -777,7 +751,6 @@ def main() -> None:
         "decode_account", k5["err"], k5["ms"], k5["plain_ms"], k5["bound"]))
     kernels[-1].update(library_ms_reason=no_library, device_us=k5["device_us"],
                        pallas="none: the JAX package's device stage")
-    log(json.dumps({"ab": ab}))
     log(f"[bound] the least time for each kernel's work: bytes over "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, 32-bit integer operations over "
         f"{INT32_OPS_PER_S / 1e12:.2f} T/s, the larger of the two")
@@ -817,7 +790,7 @@ def form_line(name, res):
 def phase_sweeps(card, dev):
     """Phase 15: config 5's sweeps on the card, every form; a mixed
     witness through every form against the plain route; launches per
-    batch, the device-busy share of an epoch batch, the guard kernel."""
+    batch, the device-busy share of an epoch batch."""
     t0 = time.time()
     w = sweep_world(SWEEP_ACCOUNTS)
     world_s = time.time() - t0
@@ -852,7 +825,8 @@ def phase_sweeps(card, dev):
                                           **kw)
     per_batch = {k: (mpt_cuda.LAUNCHES[k] - before[k]) / res["epochs"].batches
                  for k in before if mpt_cuda.LAUNCHES[k] != before[k]}
-    check("guard" not in per_batch, "an epoch batch launched the guard kernel")
+    check(per_batch == {"hinted": 1, "exact": 1},
+          f"an epoch batch launched {per_batch}: one hinted and one exact launch expected")
     sweep_resident(gp, w.index_batches(16, SWEEP_BATCH, rng), fused=True, **kw)
     res["fused"] = sweep_resident(gp, w.index_batches(SWEEP_BATCHES, SWEEP_BATCH, rng),
                                   fused=True, forbid_sync=True, **kw)
@@ -914,7 +888,6 @@ def phase_sweeps(card, dev):
     launches = read_counts()
     for name in ("keccak256", "item_offsets", "hinted", "bounded", "exact", "exact_walked"):
         check(launches[name] > 0, f"the sweeps launched the {name} kernel no time")
-    check(launches["guard"] == 0, "the sweeps launched the guard kernel")
     log(f"[15 sweeps] the epoch, fused and entries batch loops ran under "
         f"torch.cuda.set_sync_debug_mode('error'); every honest proof FOUND; no honest batch "
         f"walked exact; the mixed witness ({count(status)} FOUND / EXCLUDED / INVALID on the "
@@ -939,12 +912,12 @@ def phase_sweeps(card, dev):
         f"({DEVICE_TIMING}): device busy {busy} of the sweep's time; wrapper launches a batch "
         f"{per_batch}; torch.profiler over 10 batches: {prof['launches']:.0f} device launches "
         f"a batch, busy {prof['busy_ms']:.4f} ms, top {top} on {card}")
-    log(f"[15 launches] an epoch batch: wrapper launches {per_batch} (the guard kernel 0), "
+    log(f"[15 launches] an epoch batch: wrapper launches {per_batch}, "
         f"{prof['launches']:.0f} device launches recorded by torch.profiler")
     err = sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev)
     del tables
 
-    return {"launches": launches, "guard": guard_check(card, dev), "err": err, "world": w,
+    return {"launches": launches, "err": err, "world": w,
             "gp": gp, "epochs": res["epochs"], "pool_rows": pool_rows}
 
 
@@ -1075,36 +1048,6 @@ def sweep_kernel_check(gp, tables, mp, t, plain_mixed, steps, dev):
     return {"k1": k1, "k2": k2, "k4": k4, "fold": max(fold.values())}
 
 
-def guard_check(card, dev):
-    """The baseline guard kernel (no path launches it: the flag is folded
-    into the first walk) against guard_plain on walk outputs of the sweep's
-    batch size (no flag set, one set, every one set); its time, the plain
-    version's and torch.any's, on the honest output."""
-    gen = torch.Generator().manual_seed(3)
-    base = torch.randint(0, 1 << 20, (SWEEP_BATCH, 6), generator=gen, dtype=torch.int32)
-    base[:, 4] = 0
-    outs = [base.clone() for _ in range(3)]
-    outs[1][SWEEP_BATCH // 3, 4] = 1
-    outs[2][:, 4] = 1
-    err = 0
-    for o in outs:
-        o = o.to(dev)
-        err = max(err, max_err([mpt_cuda.walk_guard(o)], [mpt_cuda.guard_plain(o)]))
-    check(err == 0, f"the baseline guard kernel differs from guard_plain (max abs err {err})")
-    honest = outs[0].to(dev)
-    ms = cuda_timer(lambda i: mpt_cuda.walk_guard(honest), TIMED_ITERS)
-    plain_ms = cuda_timer(lambda i: mpt_cuda.guard_plain(honest), TIMED_ITERS)
-    library_ms = cuda_timer(lambda i: honest[:, 4].any(), TIMED_ITERS)
-    dev_us = device_us(lambda i: mpt_cuda.walk_guard(honest))
-    bound = least_time(4 * SWEEP_BATCH + 4, SWEEP_BATCH)
-    log(f"[15 guard] the baseline guard kernel == plain on {SWEEP_BATCH}-proof walk outputs "
-        f"with no, one and every flag set; one launch {ms:.4f} ms (device {us_text(dev_us)}), plain "
-        f"{plain_ms:.4f} ms, torch.any {library_ms:.4f} ms, bound {bound[0]:.6f} ms "
-        f"({bound[1]}) on {card}")
-    return {"err": err, "ms": ms, "device_us": dev_us, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound": bound}
-
-
 def storage_circuit_input(w, a):
     """The storage guest's input for account row `a` of a StorageWorld (its
     account proof and slot proofs), and one for a slot absent from its
@@ -1157,7 +1100,6 @@ def phase_roots_circuits(tx_block, card, dev):
     launches = read_counts()
     for name in ("keccak256", "hinted", "bounded"):
         check(launches[name] > 0, f"roots and circuits launched the {name} kernel no time")
-    check(launches["guard"] == 0, "roots and circuits launched the guard kernel")
 
     check("0x" + bytes(r_root).hex() == fx["block"]["receiptsRoot"],
           "compute_root of the receipt trie differs from the block's receiptsRoot")
@@ -1347,7 +1289,6 @@ def phase_parallel(entries, swp, card, dev):
     check(bool((out["service"][0][0] == mpt.FOUND).all()), "a headline request proof not FOUND")
     for name in ("keccak256", "hinted", "bounded", "exact"):
         check(one["launches"][name] > 0, f"the sharded paths launched the {name} kernel no time")
-    check(one["launches"]["guard"] == 0, "the sharded paths launched the guard kernel")
     log(f"[17 parallel] world size 1 over {backend} ({one['mesh']}): verify_proofs_sharded "
         f"on the {N_ACCOUNTS}-proof headline, verify_storage_grouped_sharded on "
         f"storage_world{STORAGE_WORLD}, compute_root_sharded on the receipt trie of "
@@ -1368,7 +1309,6 @@ def phase_parallel(entries, swp, card, dev):
         for name in ("keccak256", "hinted", "bounded", "exact"):
             check(r["launches"][name] > 0,
                   f"rank {r['rank']} launched the {name} kernel no time")
-        check(r["launches"]["guard"] == 0, f"rank {r['rank']} launched the guard kernel")
     built = ", ".join(f"{r['witness_seconds']:.1f}" for r in ranks)
     log(f"[17 parallel] {PAR_RANKS} ranks over gloo on one card ({ranks[0]['mesh']}, "
         f"{ranks[1]['mesh']}): every output equal to world size 1's bit for bit (the same "
@@ -1492,7 +1432,6 @@ def phase_cli(repo, card):
           f"unexpected CLI output: {outs}")
     for name in ("keccak256", "hinted", "bounded", "exact"):
         check(launches[name] > 0, f"the CLI launched the {name} kernel no time")
-    check(launches["guard"] == 0, "the CLI launched the guard kernel")
     check(traced == on_card[1] and events, f"cuda_trace: {traced}, {len(events)} events")
     kernel_events = sum(e.get("cat") == "kernel" for e in events)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -1595,7 +1534,6 @@ def phase_mixed(card, dev):
         check(launches[name] > 0, f"the mixed batch launched the {name} kernel no time")
     check(launches["item_offsets"] == 1, f"the mixed batch launched the hint pass kernel "
                                          f"{launches['item_offsets']} times, not once")
-    check(launches["guard"] == 0, "the mixed batch launched the guard kernel")
     status = got[0].cpu().numpy()
     check(bool((status == mpt.FOUND).all()),
           f"mixed batch: {int((status == mpt.FOUND).sum())} of {b} proofs FOUND")
@@ -1706,7 +1644,6 @@ def phase_distinct(card, dev):
               f"config 6 {name}: {r.found} of {r.total} proofs FOUND, {a} expected")
     for name in ("keccak256", "item_offsets", "hinted", "exact"):
         check(launches[name] > 0, f"config 6 launched the {name} kernel no time")
-    check(launches["guard"] == 0, "config 6 launched the guard kernel")
     log(f"[20 sweep] config 6 {form_line('one resident epoch', res)} (warm-up "
         f"{warm.proofs_per_sec:,.0f} proofs/s, pack {warm.pack_seconds:.4f} s); pack_seconds "
         f"is the upload, K1 over the pool, the hint pass and the table expansion; peak device "
@@ -1777,7 +1714,7 @@ def phase_distinct(card, dev):
     bound["hinted"] = walk_bound(tables["nodes"][first], tables["lens"][first],
                                  tables["num"][first], kn, 128, True)
     epoch_bound = walk_bound(tables["nodes"], tables["lens"], tables["num"], kn, 128, True)
-    # K2 `hinted` alone (one walk_lanes launch, as phase 14 times K2) on the
+    # K2 `hinted` alone (one walk_lanes launch, as phase 13 times K2) on the
     # first window, the shape of its bound
     fb = [tables[k][first] for k in ("nodes", "lens", "num", "roots", "knib", "klen")]
     fdh = tables["dh"][first]
@@ -1865,7 +1802,6 @@ def phase_bench(repo):
             log(f"[21 {module}] {json.dumps(x)}")
             for k, v in x["launches"].items():
                 launches[k] = launches.get(k, 0) + v
-    check(launches["guard"] == 0, "a bench program launched the guard kernel")
     for name in ("keccak256", "item_offsets", "decode_account", "hinted", "exact"):
         check(launches[name] > 0, f"the bench programs launched the {name} kernel no time")
     log(f"[21 bench] headline, configs --quick (6 lines) and ab: every line ok, every proof "
@@ -2061,10 +1997,9 @@ def phase_bounded(sw, adv_args, inline_entries, dev):
 
 
 def phase_k3(pn, pl, dig_k, card, dev):
-    """Phase 8: K3 (the warp sponge) against its plain version, the
-    one-thread K3 it replaced, K1 and the oracle; K3 against K1 and the
-    plain version in time on the headline pool, and the device time of K3,
-    the one-thread K3 and K1 in turns."""
+    """Phase 8: K3 (the warp sponge) against its plain version, K1 and the
+    oracle; K3 against K1 and the plain version in time on the headline
+    pool, and the device time of K3 and K1 in turns."""
     edge = [0, 1, 3, 4, 7, 8, 135, 136, 137, 271, 272, 535, 536, 576]
     rng = torch.Generator().manual_seed(1)
     err = 0
@@ -2074,17 +2009,15 @@ def phase_k3(pn, pl, dig_k, card, dev):
         lens = torch.tensor(edge, dtype=torch.int32, device=dev)
         got = keccak_cuda.keccak256_cuda_raw(rows, lens)
         torch.cuda.synchronize()
-        err = max(err, max_err([got, got, got], [
-            tkeccak.keccak256_raw(rows, lens), keccak_cuda.keccak256_cuda(rows, lens),
-            keccak_cuda.keccak256_cuda_raw_thread(rows, lens)]))
+        err = max(err, max_err([got, got], [tkeccak.keccak256_raw(rows, lens),
+                                            keccak_cuda.keccak256_cuda(rows, lens)]))
         host, gh = rows.cpu().numpy(), got.cpu().numpy()
         for i, n in enumerate(edge):
             if n <= width:
                 check(bytes(gh[i]) == oracle_keccak(bytes(host[i, :n])),
                       f"K3 digest of length {n} (width {width}) differs from the oracle")
     got = keccak_cuda.keccak256_cuda_raw(pn, pl)
-    err = max(err, max_err([got, got, got], [tkeccak.keccak256_raw(pn, pl), dig_k,
-                                             keccak_cuda.keccak256_cuda_raw_thread(pn, pl)]))
+    err = max(err, max_err([got, got], [tkeccak.keccak256_raw(pn, pl), dig_k]))
     pn_h, pl_h, gh = pn.cpu().numpy(), pl.cpu().numpy(), got.cpu().numpy()
     for i in range(0, pn_h.shape[0], 701):
         check(bytes(gh[i]) == oracle_keccak(bytes(pn_h[i, :pl_h[i]])),
@@ -2101,12 +2034,11 @@ def phase_k3(pn, pl, dig_k, card, dev):
     t["k1_2"], t["k3_2"] = timed(keccak_cuda.keccak256_cuda), timed(keccak_cuda.keccak256_cuda_raw)
     plain_ms = timed(tkeccak.keccak256_raw)
     ms, k1_ms = min(t["k3"], t["k3_2"]), min(t["k1"], t["k1_2"])
-    fns = {"K3 one-thread": keccak_cuda.keccak256_cuda_raw_thread,
-           "K3": keccak_cuda.keccak256_cuda_raw, "K1": keccak_cuda.keccak256_cuda}
+    fns = {"K3": keccak_cuda.keccak256_cuda_raw, "K1": keccak_cuda.keccak256_cuda}
     dev_us = {}
     for name in [*fns, *reversed(fns)]:  # in turns, the lower of two windows each
         dev_us[name] = lower(dev_us.get(name), device_us(lambda i: fns[name](pn, pl)))
-    log(f"[8 K3] keccak256_raw warp kernel == plain == the one-thread K3 == K1 on edge "
+    log(f"[8 K3] keccak256_raw warp kernel == plain == K1 on edge "
         f"lengths {edge} at widths 576 and 573 and the {pn.shape[0]}-row headline pool; "
         f"oracle sample ok; max abs err {err}")
     log(f"[8 time] headline pool, {pn.shape[0]} rows x {pn.shape[1]} B, one launch: "
@@ -2175,7 +2107,6 @@ def phase_storage(sw, card, dev):
     launches = read_counts()
     for name in ("keccak256", "hinted", "bounded", "decode_account"):
         check(launches[name] > 0, f"the storage path launched the {name} kernel no time")
-    check(launches["guard"] == 0, "the storage path launched the guard kernel")
     check(res.account_status.shape == (n_acc,) and res.slot_values.shape == (n_slots, 64),
           "unexpected storage result shapes")
     check(bool((res.account_status == mpt.FOUND).all()), "an account is not FOUND")
@@ -2461,7 +2392,6 @@ def phase_hint_modes(head, adv, txw, dev):
               f"the pooled verify did not launch K2 {mode}")
     launches = read_counts()
     check(launches["exact_walked"] == 0, "an honest batch re-ran in exact")
-    check(launches["guard"] == 0, "the hint modes' path launched the guard kernel")
     (hs, hv, hl), (ts, tv, tl) = (tuple(x.cpu().numpy() for x in r) for r in res["hinted"])
     check(bool((hs == mpt.FOUND).all()) and all(
         bytes(hv[i, :hl[i]]) == head["leaves"][e[2]] for i, e in enumerate(head["entries"])),
@@ -2557,7 +2487,6 @@ def phase_blocks(txw, repo, dev):
     launches = read_counts()
     for name in ("keccak256", "hinted", "exact", "exact_walked"):
         check(launches[name] > 0, f"the block path launched the {name} kernel no time")
-    check(launches["guard"] == 0, "the block path launched the guard kernel")
 
     txs = block["transactions"]
     check(rtx.status.shape == (len(txs),) and rtx.all_found
@@ -2712,83 +2641,11 @@ def native_against_k1(pool_nodes, pool_lens, k1_digests, tag, what):
         f"host call {host_s:.6f} s")
 
 
-def flagged_walk(mode, *args, hints=None):
-    """A first walk that records its re-run flag (walk_lanes with a tag)."""
-    return mpt_cuda.walk_lanes(mode, *args, hints=hints, tag=mpt_cuda.next_tag())
-
-
-def fold_route(mode, *args, hints=None):
-    """walk_batch_cuda's two launches: the first walk with its folded flag,
-    then the guarded `exact` launch; (out, values)."""
-    tag = mpt_cuda.next_tag()
-    out, values = mpt_cuda.walk_lanes(mode, *args, hints=hints, tag=tag)
-    return mpt_cuda.rerun_exact(out, values, args, tag)
-
-
-def guard_route(mode, *args, hints=None):
-    """The route before the fold: the first walk, the guard kernel, the
-    guarded `exact` launch; (out, values)."""
-    out, values = mpt_cuda.walk_lanes(mode, *args, hints=hints)
-    return mpt_cuda.rerun_exact_guard_kernel(out, values, args)
-
-
-# phase 14's pairs: (new, old, what "new" and "old" are)
-AB_PAIRS = {
-    "K1": (keccak_cuda.keccak256_cuda, keccak_cuda.keccak256_cuda_thread,
-           "warp kernel", "one-thread kernel"),
-    "K2": (mpt_cuda.walk_lanes, mpt_cuda.walk_lanes_thread, "warp kernel",
-           "one-thread kernel"),
-    "K3": (keccak_cuda.keccak256_cuda_raw, keccak_cuda.keccak256_cuda_raw_thread,
-           "warp kernel", "one-thread kernel"),
-    "K2 flag store": (flagged_walk, mpt_cuda.walk_lanes, "with the flag store",
-                      "without it"),
-    "K2 re-run": (fold_route, guard_route, "flag folded into the first walk",
-                  "guard kernel + guarded exact"),
-}
-
-
-def phase_ab(head_segs, head_steps, slot_args, txw, pn, pl, psegs, card):
-    """Phase 14: K1, K2 and K3 against the one-thread kernels that came
-    before them (`keccak256_cuda_thread`, `walk_lanes_thread`,
-    `keccak256_cuda_raw_thread`); K2's first walk with and without the
-    folded flag's store; the re-run route with the flag folded in against
-    the guard kernel's route (`rerun_exact_guard_kernel`), on an honest and
-    a latching batch. On this card, in turns (old, new, new, old; the lower
-    of two windows each), device time per batch from queued CUDA events;
-    each batch's results from the two sides equal bit for bit. Returns the
-    rows of the {"ab": ...} line."""
+def phase_layout(head_segs, head_steps, slot_args, txw):
+    """Phase 14: K2's shared-memory layout (`mpt_cuda.walk_layout`) on a
+    headline segment, the slot batch and the transaction-geometry batch."""
     geo = txw["geo"]
     targs = lane_args(txw["batch"], txw["dig"])
-    cases = []  # (pair, mode, batch label, [(args, kwargs), ...] one per launch)
-    for mode in mpt.WALK_MODES:
-        cases.append(("K2", mode, f"headline, {len(head_segs)} segments",
-                      [((mode, *a, 128, head_steps), {"hints": h}) for a, h in head_segs]))
-    for mode in ("bounded", "exact"):
-        cases.append(("K2", mode, f"slot batch {tuple(slot_args[0].shape)}",
-                      [((mode, *slot_args, 64, slot_args[0].shape[1] + 6), {})]))
-    for mvl in (geo.max_value_len, 0):
-        cases.append(("K2", "hinted", f"transaction geometry {tuple(targs[0].shape)}, "
-                      f"max_value_len {mvl}",
-                      [(("hinted", *targs, mvl, geo.max_steps), {"hints": txw["htab"]})]))
-    offs = seg_offsets(psegs)
-    for (o, (c, w)), k in zip(zip(offs, psegs), range(len(psegs))):
-        cases.append(("K1", "keccak256", f"headline pool segment {k} ({c} rows x {w} B)",
-                      [((pn[o:o + c, :w], pl[o:o + c]), {})]))
-    tpn, tpl = txw["pool"][0], txw["pool"][1]
-    cases.append(("K1", "keccak256", f"transaction pool ({tpn.shape[0]} rows x "
-                  f"{tpn.shape[1]} B)", [((tpn, tpl), {})]))
-    cases.append(("K3", "keccak256_raw", f"headline pool ({pn.shape[0]} rows x "
-                  f"{pn.shape[1]} B)", [((pn, pl), {})]))
-    heads = [(("hinted", *a, 128, head_steps), {"hints": h}) for a, h in head_segs]
-    cases.append(("K2 flag store", "hinted", f"headline, {len(head_segs)} segments", heads))
-    cases.append(("K2 re-run", "hinted", f"headline, {len(head_segs)} segments (no latch)",
-                  heads))
-    a0, h0 = head_segs[0]
-    corrupt = (h0.to(torch.int32) + 7).remainder(255).to(torch.uint8)
-    cases.append(("K2 re-run", "hinted", f"headline segment 0 {tuple(a0[0].shape)}, "
-                  f"corrupted hints (every proof latches)",
-                  [(("hinted", *a0, 128, head_steps), {"hints": corrupt})]))
-
     for label, a, kw, mvl, steps in (
             ("headline segment", head_segs[0][0], {"hints": head_segs[0][1]}, 128, head_steps),
             ("slot batch", slot_args, {}, 64, slot_args[0].shape[1] + 6),
@@ -2799,32 +2656,6 @@ def phase_ab(head_segs, head_steps, slot_args, txw, pn, pl, psegs, card):
         log(f"[14 layout] K2 {mode}, {label} {tuple(a[0].shape)}: {lay['lanes']} lanes a "
             f"proof, shared memory {lay['proof_bytes']} B a proof, {lay['block_bytes']} B "
             f"a block of 4 warps, node rows staged: {lay['staging']}")
-    rows = []
-    for pair, mode, label, calls in cases:
-        new_fn, old_fn, new_name, old_name = AB_PAIRS[pair]
-
-        def run(fn):
-            return [fn(*a, **kw) for a, kw in calls]
-
-        new, old = run(new_fn), run(old_fn)
-        torch.cuda.synchronize()
-        flat = lambda res: [x for r in res for x in (r if isinstance(r, tuple) else (r,))]
-        e = max_err(flat(new), flat(old))
-        check(e == 0, f"{pair} {mode} on the {label}: {new_name} differs from {old_name} "
-                      f"(max abs err {e})")
-        t = {}
-        for which in ("old", "new", "new", "old"):
-            fn = old_fn if which == "old" else new_fn
-            t[which] = lower(t.get(which), device_us(lambda i: run(fn)))
-        speed = (None if None in t.values() else t["old"] / t["new"])
-        rows.append({"kernel": pair, "mode": mode, "batch": label, "launches": len(calls),
-                     "old": old_name, "new": new_name, "old_us": t["old"],
-                     "new_us": t["new"], "speedup": speed, "equal": True})
-        log(f"[14 A/B] {pair} {mode}, {label}: {old_name} {us_text(t['old'])}, "
-            f"{new_name} {us_text(t['new'])} per batch of {len(calls)} call(s)"
-            + ("" if speed is None else f", {speed:.2f}x") + f"; results equal bit for "
-            f"bit ({DEVICE_TIMING}, the lower of two windows) on {card}")
-    return rows
 
 
 def adversarial_entries(entries):
@@ -2880,10 +2711,9 @@ def fold_checks(args, cases):
     any guarded launch; each folded flag against guard_plain of the words
     its walk wrote; then each case's guarded `exact` launch, the tally
     counting the cases that latched, every output (status, value, length,
-    reason) equal to the plain route; no guard kernel launched. Returns
-    (max abs err, proofs latched per case)."""
+    reason) equal to the plain route. Returns (max abs err, proofs latched
+    per case)."""
     dev = args[0].device
-    guards = mpt_cuda.LAUNCHES["guard"]
     queued = []
     for label, hints in cases:
         tag = mpt_cuda.next_tag()
@@ -2910,7 +2740,6 @@ def fold_checks(args, cases):
     want_ran = sum(n > 0 for n in latched)
     check(ran == want_ran, f"the guarded exact launch walked {ran} times, {want_ran} of "
                            f"{len(cases)} first walks latched")
-    check(mpt_cuda.LAUNCHES["guard"] == guards, "the folded re-run launched the guard kernel")
     return err, latched
 
 

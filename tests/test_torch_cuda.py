@@ -1,7 +1,6 @@
-"""Kernels K1-K5 against their plain versions, on the card, and
-against the one-thread kernels that came before them; the `exact` re-run
-decided on the card (the flag folded into the first walk) against the
-route that read its flag on the host and the guard kernel it replaced; the
+"""Kernels K1-K5 against their plain versions, on the card; the `exact`
+re-run decided on the card (the flag folded into the first walk) against
+the route that reads its flag on the host; the
 device hint pass and the sweeps on the card against the CPU; the
 two-level storage entry at the benchmark's published widths against its
 plain reference.
@@ -64,7 +63,6 @@ def test_keccak_kernel_matches_plain(dev):
     assert torch.equal(got, tkeccak.keccak256(rows, lens))
     for i, n in enumerate(edge):
         assert bytes(got[i].cpu().numpy()) == keccak256(bytes(data[i, :n]))
-    assert torch.equal(got, keccak_cuda.keccak256_cuda_thread(rows, lens))
     # column slices hash in place: row stride 576, widths 300 and 137, rows
     # starting 0, 1 or 4 bytes in (1-, 4- and 8-byte aligned), with the
     # lengths as they are, so len > width on most rows (the pad bytes' places
@@ -73,14 +71,12 @@ def test_keccak_kernel_matches_plain(dev):
         view = rows[:, start:start + width]
         want = tkeccak.keccak256(view, lens)
         assert torch.equal(keccak_cuda.keccak256_cuda(view, lens), want)
-        assert torch.equal(keccak_cuda.keccak256_cuda_thread(view, lens), want)
     # transaction-geometry rows (2092 B, 4-byte aligned) of 1 to 16 blocks
     tx_lens = [0, 135, 136, 1000, 2091, 2092, 1500, 2176]
     tx = torch.from_numpy(rng.integers(0, 256, (len(tx_lens), 2092), dtype=np.uint8)).to(dev)
     tl = torch.tensor(tx_lens, dtype=torch.int32, device=dev)
     want = tkeccak.keccak256(tx, tl)
     assert torch.equal(keccak_cuda.keccak256_cuda(tx, tl), want)
-    assert torch.equal(keccak_cuda.keccak256_cuda_thread(tx, tl), want)
     for i, n in enumerate(tx_lens[:6]):
         assert bytes(want[i].cpu().numpy()) == keccak256(bytes(tx[i, :n].cpu().numpy()))
 
@@ -123,9 +119,8 @@ def test_walk_kernel_matches_plain(dev, mode):
     got = mpt_cuda.walk_lanes(mode, *args, hints=hints)
     torch.cuda.synchronize()
     want = mpt.walk_kernel_plain(mode, *args, hints=hints)
-    old = mpt_cuda.walk_lanes_thread(mode, *args, hints=hints)
-    for g, w, o in zip(got, want, old):
-        assert torch.equal(g, w) and torch.equal(o, w)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     if mode == "hinted":
         assert int(got[0][:, 4].sum()) > 0  # the inline-node proofs latch
         _check_window_past_2_31(dev)
@@ -133,11 +128,12 @@ def test_walk_kernel_matches_plain(dev, mode):
         _check_device_hint_pass_and_sweeps(dev, packed)
         return
     # the `exact` re-run decided on the card (the flag folded into the first
-    # walk, a guarded launch) equals the route that read the flag on the
+    # walk, a guarded launch) equals the route that reads the flag on the
     # host, bit for bit, on an honest batch, the adversarial batch and a
     # batch that latches; the folded flag equals guard_plain of the first
-    # walk's words; no guard kernel is launched; the device tally counts the
-    # guarded launches that walked
+    # walk's words; each walk_batch_cuda call is one first-walk launch and
+    # one `exact` launch; the device tally counts the guarded launches that
+    # walked
     key = keccak256(b"card-over-bound")
     pair = rlp.encode([b"\x11" * 100, b"\x22"])  # item 1 past bounded's window
     latching = pack_proofs(_entries()[:4] + [(keccak256(pair), [pair], key)],
@@ -157,18 +153,14 @@ def test_walk_kernel_matches_plain(dev, mode):
         assert torch.equal(mpt_cuda.folded_flag(dev, tag), mpt_cuda.guard_plain(first))
         assert int(mpt_cuda.folded_flag(dev, tag)) == int(latched), label
         walked = mpt_cuda.exact_walked(dev)
-        guards = mpt_cuda.LAUNCHES["guard"]
+        before = dict(mpt_cuda.LAUNCHES)
         got = mpt_cuda.walk_batch_cuda(*a, hints=h, with_reasons=True)
-        assert mpt_cuda.LAUNCHES["guard"] == guards
+        added = {k: v - before[k] for k, v in mpt_cuda.LAUNCHES.items() if v != before[k]}
+        assert added == {mode: 1, "exact": 1}, label
         assert mpt_cuda.exact_walked(dev) == walked + int(latched), label
         want = _host_route(mode, a, h)
         for g, w in zip(got, want):
             assert torch.equal(g, w), (mode, label)
-        # the guard kernel and its guarded launch, the baseline of the fold
-        base = mpt_cuda.rerun_exact_guard_kernel(*mpt_cuda.walk_lanes(mode, *a, hints=h), a)
-        assert mpt_cuda.LAUNCHES["guard"] == guards + 1
-        assert torch.equal(base[0][:, 0], want[0]) and torch.equal(base[1], want[1])
-        assert mpt_cuda.exact_walked(dev) == walked + 2 * int(latched), label
     # two batches' first walks queued before either batch's guarded launch:
     # each keeps its own flag, and only the batch that latched walks again
     walked = mpt_cuda.exact_walked(dev)
@@ -186,9 +178,6 @@ def test_walk_kernel_matches_plain(dev, mode):
         assert torch.equal(out[:, 0], want[0]) and torch.equal(values, want[1]), label
         assert torch.equal(out[:, 5], want[3]), label
     assert mpt_cuda.exact_walked(dev) == walked + 1
-    flagged = torch.zeros((4, 6), dtype=torch.int32, device=dev)
-    flagged[1, 4] = 1
-    assert int(mpt_cuda.walk_guard(flagged)) == 1
 
 
 def _check_window_past_2_31(dev):
@@ -230,8 +219,8 @@ def _walk_inputs(dev, packed):
 
 
 def _host_route(mode, args, hints):
-    """walk_batch_cuda as it was before the re-run moved to the card: the
-    flag read on the host, then an unguarded `exact` launch."""
+    """walk_batch_cuda with the re-run decided on the host: the flag read
+    there, then an unguarded `exact` launch."""
     out, values = mpt_cuda.walk_lanes(mode, *args, hints=hints)
     if bool((out[:, 4] != 0).any()):
         out, values = mpt_cuda.walk_lanes("exact", *args)
@@ -382,7 +371,7 @@ def test_walk_kernel_matches_plain_on_fuzzed_batch(dev, seed):
     """Random byte flips in node bytes and lengths (walked against the
     digests of the unflipped nodes, so the flips are decoded), and random
     hint bytes: the kernel's six words and values equal the plain walk's
-    and the thread kernel's in every mode, at every node width of
+    in every mode, at every node width of
     NODE_LENS, with value rows of 128 bytes, of 37 (not a multiple of 16,
     so rows start unaligned) and of 5000 (past the node buffer)."""
     rng = np.random.default_rng(seed)
@@ -410,21 +399,19 @@ def test_walk_kernel_matches_plain_on_fuzzed_batch(dev, seed):
                 got = mpt_cuda.walk_lanes(mode, *args, hints=hints)
                 torch.cuda.synchronize()
                 want = mpt.walk_kernel_plain(mode, *args, hints=hints)
-                old = mpt_cuda.walk_lanes_thread(mode, *args, hints=hints)
-                for g, w, o in zip(got, want, old):
+                for g, w in zip(got, want):
                     assert torch.equal(g, w), (mode, node_len, mvl)
-                    assert torch.equal(o, w), (mode, node_len, mvl)
 
 
 def test_hinted_variants_match_plain(dev):
     """Every hinted mode (`hinted` and its variants `hinted4`, `hinted1`,
     `ordered`, `pairskip`) on the batch with an unordered proof and a
     long-form item in branch slot 2, at every node width of NODE_LENS
-    (a node axis that is a multiple of 4 and ones that are not: the thread
-    kernel's `hinted1` wrapper pads them), whole, as a row slice and as a
-    depth segment's view (rows and node axis cut, strides kept): kernel ==
-    plain == thread kernel, and the flags of `hinted4` and `ordered` differ
-    from `hinted`'s where they should."""
+    (a node axis that is a multiple of 4 and ones that are not, so
+    `hinted1`'s aligned word reads meet rows of every width), whole, as a
+    row slice and as a depth segment's view (rows and node axis cut,
+    strides kept): kernel == plain, and the flags of `hinted4` and
+    `ordered` differ from `hinted`'s where they should."""
     entries = _entries()
     long_slot = rlp.encode([b"", b"", b"\x5a" * 60] + [b""] * 14)
     root0, proof0, key0 = entries[0]
@@ -449,9 +436,8 @@ def _check_hinted_variants(dev, packed):
             got = mpt_cuda.walk_lanes(mode, *args, hints=hints[sl, :dd])
             torch.cuda.synchronize()
             want = mpt.walk_kernel_plain(mode, *args, hints=hints[sl, :dd])
-            old = mpt_cuda.walk_lanes_thread(mode, *args, hints=hints[sl, :dd])
-            for g, w, o in zip(got, want, old):
-                assert torch.equal(g, w) and torch.equal(o, w), (mode, n, dd)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (mode, n, dd)
             flags[mode] = got[0][:, 4].cpu()
         if dd < d:
             continue  # the cut proofs: the flags below are the whole slab's
@@ -464,8 +450,8 @@ def _check_hinted_variants(dev, packed):
 def test_keccak_raw_kernel_matches_plain_and_k1(dev):
     """K3 on the edge lengths, at a width that is a multiple of 8 (576) and
     at one that is not (573), and on rows of two to sixteen blocks (2092 B,
-    lengths past the width too): equal to its plain version, to the
-    one-thread K3 it replaced, to K1 and to the oracle."""
+    lengths past the width too): equal to its plain version, to K1 and to
+    the oracle."""
     edge = [0, 1, 3, 4, 7, 8, 135, 136, 137, 271, 272, 535, 536, 573]
     long = [272, 273, 543, 544, 1000, 1500, 2091, 2092, 2176]
     rng = np.random.default_rng(7)
@@ -478,7 +464,6 @@ def test_keccak_raw_kernel_matches_plain_and_k1(dev):
         torch.cuda.synchronize()
         assert keccak_cuda.LAUNCHES["keccak256_raw"] == before + 1
         assert torch.equal(got, tkeccak.keccak256_raw(rows, lens))
-        assert torch.equal(got, keccak_cuda.keccak256_cuda_raw_thread(rows, lens))
         assert torch.equal(got, keccak_cuda.keccak256_cuda(rows, lens))
         assert keccak_cuda.LAUNCHES["keccak256_raw"] == before + 1
         for i, n in enumerate(lengths):

@@ -3,6 +3,9 @@ XLA walker `ops.mpt.walk_batch`: status, values, value lengths and reasons,
 bit-exact, on honest, adversarial, inline-node, tiny-node, perturbed-padding
 and truncated batches; plus the overflow contract of `hinted` mode."""
 
+import ctypes
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,6 +187,34 @@ def test_hinted_corrupt_hints_latch_and_keep_results():
         assert (ovf > 0).any()
         for a, b in zip(ref, res):
             assert torch.equal(a, b)
+
+
+def test_walk_args_layout_checked_once_per_library(monkeypatch):
+    """The wrapper holds its `WalkArgs` against the loaded library's size
+    once per library: a match is not asked again, a mismatch raises
+    RuntimeError before any launch, on every call."""
+
+    class Lib:
+        def __init__(self, size):
+            self.size, self.asked = size, 0
+
+        def zkp_walk_args_size(self):
+            self.asked += 1
+            return self.size
+
+    size = ctypes.sizeof(mpt_cuda.WalkArgs)
+    loaded = []
+    monkeypatch.setattr(mpt_cuda, "load_library", lambda: loaded[-1])
+    monkeypatch.setattr(mpt_cuda, "_CHECKED", None)
+    good, bad = SimpleNamespace(lib=Lib(size)), SimpleNamespace(lib=Lib(size + 8))
+    loaded.append(good)
+    assert mpt_cuda._library() is good.lib and mpt_cuda._library() is good.lib
+    assert good.lib.asked == 1
+    loaded.append(bad)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="WalkArgs layout"):
+            mpt_cuda._library()
+    assert bad.lib.asked == 2
 
 
 def test_walk_kernel_plain_rejects_unknown_mode():

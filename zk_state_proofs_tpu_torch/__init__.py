@@ -22,7 +22,7 @@ Hopper (sm_90a):
                      memory slab, in all the TPU kernel's modes: `hinted` and its variants `hinted4`,
                      `hinted1`, `ordered`, `pairskip` (`hint_mode`),
                      `bounded` and `exact`, the `exact` re-run decided on the
-                     card by a guard kernel (csrc/mpt_walk.cu)
+                     card by a flag the first walk stores (csrc/mpt_walk.cu)
   ops/trie_build.py  trie roots by a level-wise keccak reduction
   models/            verifier workloads (accounts, two-level storage, block
                      tx/receipt tries), the sweeps, the circuit entry points

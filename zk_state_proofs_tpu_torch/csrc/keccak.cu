@@ -23,20 +23,15 @@
 // row's address allows. The padding bytes are xored in by masks (as K3
 // does). Lanes 0..3 write the digest.
 //
-// What bounds it on the H100: operations. A rate block is 24 rounds of
-// about 4,354 32-bit instructions' worth of work in the one-thread form;
-// here its cost is the shuffle issue (about 430 warp-shuffles a block, one
-// warp instruction a cycle on each SM) and, for few long messages, the
-// latency of a round's dependent shuffles (about 150 cycles). The
-// one-thread-per-message kernel that came before needs fewer instructions
-// a block, but it fills the card only with thousands of messages: a pool
-// of 1,024 or 384 rows ran as 16 or 6 blocks of 64 threads. The warp
-// sponge puts every message on its own warp, and with it on its own
-// scheduler slot. No shared memory.
+// What bounds it on the H100: operations. A rate block costs the shuffle
+// issue (about 430 warp-shuffles a block, one warp instruction a cycle on
+// each SM) and, for few long messages, the latency of a round's dependent
+// shuffles (about 150 cycles). Every message has a warp, and with it a
+// scheduler slot of its own, so a pool of 1,024 or 384 rows still fills
+// the card. No shared memory.
 //
-// The one-thread-per-message kernel (keccak256_rows_thread_kernel,
-// zkp_keccak256_rows_thread) stays below, unchanged, as the baseline of a
-// same-run A/B; no path calls it.
+// A thread-per-message form of K1 and of K3 was measured against this
+// design on the H100 and retired (PERF.md section 6 keeps the figures).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,112 +51,8 @@ __constant__ uint64_t kRoundConstants[24] = {
     0x8000000000008080ULL, 0x0000000080000001ULL, 0x8000000080008008ULL,
 };
 
-__device__ __forceinline__ uint64_t rotl64(uint64_t x, int n) {
-  return n == 0 ? x : (x << n) | (x >> (64 - n));
-}
-
-__device__ __forceinline__ void keccak_f1600(uint64_t a[25]) {
-#pragma unroll 1
-  for (int r = 0; r < 24; ++r) {
-    uint64_t c[5], b[25];
-#pragma unroll
-    for (int x = 0; x < 5; ++x) {
-      c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
-    }
-#pragma unroll
-    for (int x = 0; x < 5; ++x) {
-      const uint64_t d = c[(x + 4) % 5] ^ rotl64(c[(x + 1) % 5], 1);
-#pragma unroll
-      for (int y = 0; y < 25; y += 5) a[x + y] ^= d;
-    }
-    // rho and pi: b[y + 5*((2x + 3y) % 5)] = rotl(a[x + 5y], rho[x + 5y])
-    b[0] = rotl64(a[0], 0);
-    b[16] = rotl64(a[5], 36);
-    b[7] = rotl64(a[10], 3);
-    b[23] = rotl64(a[15], 41);
-    b[14] = rotl64(a[20], 18);
-    b[10] = rotl64(a[1], 1);
-    b[1] = rotl64(a[6], 44);
-    b[17] = rotl64(a[11], 10);
-    b[8] = rotl64(a[16], 45);
-    b[24] = rotl64(a[21], 2);
-    b[20] = rotl64(a[2], 62);
-    b[11] = rotl64(a[7], 6);
-    b[2] = rotl64(a[12], 43);
-    b[18] = rotl64(a[17], 15);
-    b[9] = rotl64(a[22], 61);
-    b[5] = rotl64(a[3], 28);
-    b[21] = rotl64(a[8], 55);
-    b[12] = rotl64(a[13], 25);
-    b[3] = rotl64(a[18], 21);
-    b[19] = rotl64(a[23], 56);
-    b[15] = rotl64(a[4], 27);
-    b[6] = rotl64(a[9], 20);
-    b[22] = rotl64(a[14], 39);
-    b[13] = rotl64(a[19], 8);
-    b[4] = rotl64(a[24], 14);
-    // chi
-#pragma unroll
-    for (int y = 0; y < 25; y += 5) {
-#pragma unroll
-      for (int x = 0; x < 5; ++x) {
-        a[y + x] = b[y + x] ^ (~b[y + (x + 1) % 5] & b[y + (x + 2) % 5]);
-      }
-    }
-    // iota
-    a[0] ^= kRoundConstants[r];
-  }
-}
-
 __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-// rows: u8, row i at rows + i * row_stride, `width` bytes readable.
-// Message i is its first lens[i] bytes; bytes at or past `width` read 0.
-// Absorbs min(len / 136 + 1, width / 136 + 1) blocks, the block count of
-// zk_state_proofs_tpu.ops.keccak.keccak256 on a [.., width] buffer.
-__global__ void keccak256_rows_thread_kernel(const uint8_t* __restrict__ rows,
-                                      long long row_stride, int width,
-                                      const int32_t* __restrict__ lens, int n,
-                                      uint8_t* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint8_t* row = rows + (long long)i * row_stride;
-  const int len = lens[i];
-  const int nb_len = floor_div(len, kRate) + 1;
-  const int nb = min(nb_len, width / kRate + 1);
-  const long long last = (long long)nb_len * kRate - 1;  // 0x80 position
-  const int readable = min(len, width);
-
-  uint64_t a[25];
-#pragma unroll
-  for (int w = 0; w < 25; ++w) a[w] = 0;
-
-  for (int blk = 0; blk < nb; ++blk) {
-    const int base = blk * kRate;
-#pragma unroll
-    for (int w = 0; w < 17; ++w) {
-      uint64_t lane = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int p = base + w * 8 + k;
-        uint32_t byte = p < readable ? row[p] : 0u;
-        if (p == len) byte ^= 0x01u;
-        if (p == last) byte ^= 0x80u;
-        lane |= (uint64_t)byte << (8 * k);
-      }
-      a[w] ^= lane;
-    }
-    keccak_f1600(a);
-  }
-
-  uint8_t* o = out + (long long)i * 32;
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) o[8 * w + k] = (uint8_t)(a[w] >> (8 * k));
-  }
 }
 
 // Kernel K3's padding masks (keccak_pallas.py:234-261), shared with K1:
@@ -174,56 +65,8 @@ __device__ __forceinline__ uint64_t byte_at_lane(long long e, uint64_t b) {
   return (e >= 0 && e < 8) ? b << (8 * e) : 0ULL;
 }
 
-// K3, one thread per message: the kernel that came before the warp sponge
-// below (keccak256_raw_warp_kernel), kept unchanged as the baseline of a
-// same-run A/B; no path calls it. Row i is n_words u32 words (n_words
-// even, rows 8-byte aligned); Keccak lane j of block ib is words
-// 34*ib + 2j (low half) and 34*ib + 2j + 1 (high half), fetched as one
-// aligned 8-byte load. The bytes past the length are masked off, and the
-// 0x01 pad byte and the final 0x80 byte are xored in with masks. Absorbs
-// block 0 always and block ib > 0 while len / 136 + 1 > ib, for
-// ib < num_blocks.
-__global__ void keccak256_raw_thread_kernel(const uint64_t* __restrict__ rows,
-                                            int n_words, int num_blocks,
-                                            const int32_t* __restrict__ lens, int n,
-                                            uint8_t* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int n_lanes = n_words / 2;
-  const uint64_t* row = rows + (long long)i * n_lanes;
-  const long long len = lens[i];
-  const int nblk = floor_div((int)len, kRate) + 1;
-  const long long q80 = (long long)nblk * kRate - 1;  // 0x80 position
-
-  uint64_t a[25];
-#pragma unroll
-  for (int w = 0; w < 25; ++w) a[w] = 0;
-
-  for (int ib = 0; ib < num_blocks && (ib == 0 || nblk > ib); ++ib) {
-#pragma unroll
-    for (int j = 0; j < 17; ++j) {
-      const int lane = 17 * ib + j;
-      const long long q = (long long)kRate * ib + 8 * j;  // first byte
-      uint64_t x = lane < n_lanes ? row[lane] : 0ULL;
-      x &= byte_mask(len - q);
-      x ^= byte_at_lane(len - q, 0x01ULL);
-      x ^= byte_at_lane(q80 - q, 0x80ULL);
-      a[j] ^= x;
-    }
-    keccak_f1600(a);
-  }
-
-  uint8_t* o = out + (long long)i * 32;
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) o[8 * w + k] = (uint8_t)(a[w] >> (8 * k));
-  }
-}
-
-
 // ---------------------------------------------------------------------------
-// K1, a warp per message.
+// K1: the warp sponge.
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMsgWarps = 2;  // warps (messages) per block
@@ -286,9 +129,9 @@ __device__ __forceinline__ SpongeLanes sponge_lanes(int lane) {
 }
 
 // Keccak-f[1600] on the warp's state (this lane's word of it)
-__device__ __forceinline__ uint64_t keccak_f1600_warp(uint64_t a,
-                                                      const SpongeLanes& s,
-                                                      int lane) {
+__device__ __forceinline__ uint64_t keccak_f1600(uint64_t a,
+                                                 const SpongeLanes& s,
+                                                 int lane) {
 #pragma unroll 1
   for (int r = 0; r < 24; ++r) {
     const uint64_t c = a ^ shfl64(a, s.col[0]) ^ shfl64(a, s.col[1]) ^
@@ -320,7 +163,11 @@ __device__ __forceinline__ uint64_t row_lane(const uint8_t* row, long long q,
   return x;
 }
 
-// rows, lens, width and the block count as keccak256_rows_thread_kernel
+// rows, lens and width as zkp_keccak256_rows takes them: message i is the
+// first lens[i] bytes of row i (rows + i * row_stride), bytes at or past
+// `width` read 0; absorbs min(len / 136 + 1, width / 136 + 1) blocks, the
+// block count of zk_state_proofs_tpu.ops.keccak.keccak256 on a [.., width]
+// buffer
 __global__ void __launch_bounds__(kMsgWarps * 32)
     keccak256_rows_warp_kernel(const uint8_t* __restrict__ rows,
                                long long row_stride, int width,
@@ -350,7 +197,7 @@ __global__ void __launch_bounds__(kMsgWarps * 32)
   for (int blk = 0; blk < nb; ++blk) {
     a ^= next;
     next = absorb_word(blk + 1);  // in flight during the permutation
-    a = keccak_f1600_warp(a, s, lane);
+    a = keccak_f1600(a, s, lane);
   }
   if (lane < 4) reinterpret_cast<uint64_t*>(out + (long long)i * 32)[lane] = a;
 }
@@ -362,7 +209,7 @@ __global__ void __launch_bounds__(kMsgWarps * 32)
 // (8, 128) lane tiles of pre-split u32 word pairs.
 //
 // Design: one message a warp, the lane map and the permutation of K1
-// (sponge_lanes, keccak_f1600_warp). K3's contract is what K1 cannot
+// (sponge_lanes, keccak_f1600). K3's contract is what K1 cannot
 // assume: row i is n_words u32 words (n_words even) at an 8-byte aligned
 // address, zero-padded past its data. So lane t < 17 fetches rate word t
 // of block ib, row words 34*ib + 2t and 34*ib + 2t + 1, as one aligned
@@ -407,25 +254,12 @@ __global__ void __launch_bounds__(kRawWarps * 32)
   for (int ib = 0; ib < nb; ++ib) {
     a ^= next;
     next = absorb_word(ib + 1);  // in flight during the permutation
-    a = keccak_f1600_warp(a, s, lane);
+    a = keccak_f1600(a, s, lane);
   }
   if (lane < 4) reinterpret_cast<uint64_t*>(out + (long long)i * 32)[lane] = a;
 }
 
 }  // namespace
-
-extern "C" int zkp_keccak256_rows_thread(const void* rows, long long row_stride,
-                                         int width, const void* lens, int n,
-                                         void* out, void* stream) {
-  if (n > 0) {
-    const int threads = 64;
-    const int blocks = (n + threads - 1) / threads;
-    keccak256_rows_thread_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)rows, row_stride, width, (const int32_t*)lens, n,
-        (uint8_t*)out);
-  }
-  return (int)cudaGetLastError();
-}
 
 // the warp sponge (the hash of every path)
 extern "C" int zkp_keccak256_rows(const void* rows, long long row_stride,
@@ -448,20 +282,6 @@ extern "C" int zkp_keccak256_raw(const void* words, int n_words,
   if (n > 0) {
     const int blocks = (n + kRawWarps - 1) / kRawWarps;
     keccak256_raw_warp_kernel<<<blocks, kRawWarps * 32, 0, (cudaStream_t)stream>>>(
-        (const uint64_t*)words, n_words, num_blocks, (const int32_t*)lens, n,
-        (uint8_t*)out);
-  }
-  return (int)cudaGetLastError();
-}
-
-// K3 one thread a message (the baseline of the A/B)
-extern "C" int zkp_keccak256_raw_thread(const void* words, int n_words,
-                                        int num_blocks, const void* lens, int n,
-                                        void* out, void* stream) {
-  if (n > 0) {
-    const int threads = 64;
-    const int blocks = (n + threads - 1) / threads;
-    keccak256_raw_thread_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint64_t*)words, n_words, num_blocks, (const int32_t*)lens, n,
         (uint8_t*)out);
   }

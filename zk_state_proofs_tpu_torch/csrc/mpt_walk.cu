@@ -36,12 +36,11 @@
 //    lanes.
 //  - Serial decode (exact, bounded): the latch rules are a serial chain of
 //    18 header reads; every lane of the group runs it on the same shared
-//    words. A warp per proof would issue this chain once for one proof,
-//    where the thread kernel issued it once for 32, and on the 4096-slot
-//    batch it was then no faster than the thread kernel: bound by
-//    instruction issue. With 8 lanes a proof one issued chain serves four
-//    proofs, and 8 lanes still stage a row, search up to 8 digests a
-//    ballot and copy a value in few steps.
+//    words. With a warp a proof the chain is issued once for one proof,
+//    and the 4096-slot batch is then bound by instruction issue; with 8
+//    lanes a proof one issued chain serves four proofs, and 8 lanes still
+//    stage a row, search up to 8 digests a ballot and copy a value in few
+//    steps.
 //  - Merge and step_pair: group-uniform. Every lane computes the same
 //    merge from the same shared bytes (SIMT issues it once for the group's
 //    lanes, so this costs what one lane would and needs no broadcast);
@@ -53,15 +52,13 @@
 //    multiple of 16), each 16 bytes assembled from aligned shared words
 //    with funnel shifts.
 //
-// What bounds it on the H100: the bytes bound is small (the headline's
-// live nodes, digests and hints are about 9 MB read and written, 2.7 us at
-// 3.35 TB/s); what held the one-thread-per-proof kernel back was latency:
-// 32 to 128 warps on 132 SMs, each step a chain of dependent, uncoalesced
-// byte loads from device memory, and a per-thread byte loop for the value.
-// The group design puts one proof on each warp or group (thousands of
-// warps), turns the device traffic into one coalesced copy per proof, and
-// leaves the dependent chain in shared memory (about 30 cycles a link
-// instead of hundreds).
+// What bounds it on the H100: latency, not bytes. The bytes bound is small
+// (the headline's live nodes, digests and hints are about 9 MB read and
+// written, 2.7 us at 3.35 TB/s), while each step of a walk is a chain of
+// dependent reads. The design puts one proof on each warp or group
+// (thousands of warps), turns the device traffic into one coalesced copy
+// per proof, and leaves the dependent chain in shared memory (about 30
+// cycles a link instead of the hundreds of an uncoalesced device load).
 //
 // Shared-memory budget: kSlabBudget = 24 KB a warp (96 KB a block at most,
 // two blocks or more an SM), so 24 KB a proof in the hinted modes and 6 KB
@@ -79,9 +76,9 @@
 // 190 (serial) rows the block's shared memory exceeds the card's and the
 // launch fails (the wrapper raises).
 //
-// The one-thread-per-proof kernel that came before (mpt_walk_thread_kernel,
-// zkp_mpt_walk_thread) stays below, unchanged, as the baseline of a
-// same-run A/B; no path calls it.
+// A thread-per-proof kernel and a one-block guard kernel for the re-run
+// flag were measured against this design on the H100 and retired (PERF.md
+// section 6 keeps their figures).
 //
 // Semantics follow the TPU kernel bit for bit:
 //  - byte positions clamp to [0, N4 - 1] (N4 = N rounded up to a multiple
@@ -109,25 +106,22 @@
 //    byte N4 - 1 of a node whose list end fits its length (only possible
 //    with node_lens > N), where the TPU kernel's unlatched result can
 //    differ from `exact`;
-//  - `hinted4` is `hinted` with every item header decoded from four bytes
-//    (head_at), so branch slots 2..15 take no long-form latch; its flag
-//    differs from `hinted`'s only on a present long-form item there;
+//  - `hinted4` is `hinted` with every item header decoded from four bytes,
+//    so branch slots 2..15 take no long-form latch; its flag differs from
+//    `hinted`'s only on a present long-form item there;
 //  - `hinted1` is `hinted` with the node read as aligned 32-bit words,
-//    each header from one or two words: in the thread kernel from device
-//    memory through a two-word cache (N % 4 == 0, rows 4-byte aligned: its
-//    wrapper pads); the warp kernel reads every mode's headers so, from
-//    its shared slab (rows at a 16-byte stride, zero past N). Same flag and
-//    words as `hinted`;
+//    each header from one or two words: the kernel reads every mode's
+//    headers so, from its shared slab (rows at a 16-byte stride, zero past
+//    N), so it walks `hinted1` as `hinted`. Same flag and words as
+//    `hinted`;
 //  - `ordered` reads, at step s, the node at row min(s, d - 1) and latches
 //    the flag on a live proof whose node_idx differs (an unordered pack, a
 //    root not at row 0, a step after an inline child); the rest is
 //    `hinted`'s decode and merge, the digest search included;
 //  - `pairskip` gates the extension/leaf block on a vote over the proofs
-//    walked together (the TPU's tile-wide pl.when(any_pair)). In the warp
-//    kernel a warp walks one hinted proof, so the vote is the proof's own
-//    is_pair; in the thread kernel it is __any_sync over the warp's live
-//    threads. Same flag and words as `hinted` either way: a proof's own
-//    vote is in the vote;
+//    walked together (the TPU's tile-wide pl.when(any_pair)). A warp walks
+//    one hinted proof, so the vote is the proof's own is_pair: same flag
+//    and words as `hinted`;
 //  - the value is copied out at the end, byte-aligned: value[j] =
 //    node[vnode][clip(vstart) + j] for j < vlen (0 past the buffer).
 //
@@ -152,11 +146,6 @@
 // so a stream of batches queues with no sync between them. A guarded
 // launch that walks adds one to a device tally (WalkArgs.tally, from its
 // first block), the count of guarded launches that walked.
-//
-// walk_guard_kernel (zkp_walk_guard), the one-block guard that came before
-// the fold (it ORed the overflow words into a device int, which a guarded
-// launch read through WalkArgs.guard), stays below as the baseline of a
-// same-run A/B; no path calls it.
 //
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -194,9 +183,6 @@ struct WalkArgs {
   uint8_t* values;  // [B, max_value_len]
   int batch, d, n, kn, max_steps, max_value_len;
   int mode;  // a Mode
-  // the baseline guard (walk_guard_kernel): a launch walks only where
-  // *guard != 0 (nullptr: always)
-  const int32_t* guard;
   // a launch that walks adds one here (nullptr: no tally)
   unsigned long long* tally;
   // the re-run flag, a slot of the device's flag ring (nullptr: none): a
@@ -236,12 +222,10 @@ struct Pair {
   int n_path;
 };
 
-// whether a guarded launch leaves the batch as it is (every block returns
-// at once): the baseline guard is 0, or an `exact` launch's flag slot does
-// not hold its tag
+// whether a guarded `exact` launch leaves the batch as it is (every block
+// returns at once): its flag slot does not hold its tag
 __device__ __forceinline__ bool skip_batch(const WalkArgs& a) {
-  return (a.guard != nullptr && *a.guard == 0) ||
-         (a.mode == EXACT && a.flag != nullptr && *a.flag != a.tag);
+  return a.mode == EXACT && a.flag != nullptr && *a.flag != a.tag;
 }
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -274,14 +258,6 @@ __device__ __forceinline__ Head head_fields(int b0, int b1, int b2, int b3) {
   return h;
 }
 
-// header at byte position pos, clamped like _fetch4 / fetch_packed
-__device__ __forceinline__ Head head_at(const uint8_t* row, int n, int n4,
-                                        int pos) {
-  const int p = clampi(pos, 0, n4 - 1);
-  return head_fields(byte_at(row, n, p), byte_at(row, n, p + 1),
-                     byte_at(row, n, p + 2), byte_at(row, n, p + 3));
-}
-
 __device__ __forceinline__ void take_item(Sel& s, int i, bool present,
                                           int child, int cursor, int ips,
                                           int ipl, bool ilist) {
@@ -308,370 +284,8 @@ __device__ __forceinline__ void take_item(Sel& s, int i, bool present,
   }
 }
 
-// `exact`: serial decode of the node at byte offset `start`
-__device__ Sel decode_exact(const uint8_t* row, int n, int n4, int start,
-                            int blen, int child) {
-  Sel s = {};
-  const Head hd = head_at(row, n, n4, start);
-  const int ps = start + hd.off;
-  const int end = ps + hd.len;
-  int cursor = ps;
-  bool all_ok = true;
-#pragma unroll 1
-  for (int i = 0; i < 17; ++i) {
-    const Head it = head_at(row, n, n4, cursor);
-    const int ips = cursor + it.off;
-    const bool present = cursor < end;
-    take_item(s, i, present, child, cursor, ips, it.len, it.list);
-    s.count += present;
-    all_ok = all_ok && (!present || it.ok);
-    if (present) cursor = ips + it.len;
-  }
-  s.well_formed = hd.list && hd.ok && cursor == end && end <= blen && all_ok;
-  return s;
-}
-
-// `bounded`: byte k of the window of `sh_rows` words that starts at `base`
-__device__ __forceinline__ int win_byte(const uint8_t* row, int n, int base,
-                                        int sh_rows, int k) {
-  return k < 4 * sh_rows ? byte_at(row, n, base + k) : 0;
-}
-
-// `bounded`: header at window offset `rel`, through the first hi_rows words
-__device__ __forceinline__ Head head_win(const uint8_t* row, int n, int n4,
-                                         int base, int sh_rows, int rel,
-                                         int hi_rows) {
-  const int wp = clampi(rel, 0, n4 - 1) >> 2;
-  if (wp >= min(sh_rows, hi_rows)) return head_fields(0, 0, 0, 0);
-  const int k = 4 * wp + (rel & 3);
-  return head_fields(win_byte(row, n, base, sh_rows, k),
-                     win_byte(row, n, base, sh_rows, k + 1),
-                     win_byte(row, n, base, sh_rows, k + 2),
-                     win_byte(row, n, base, sh_rows, k + 3));
-}
-
-// `bounded`: serial decode of the node at byte offset `start` through
-// bounded windows; sets ovf where an item lies past its window
-__device__ Sel decode_bounded(const uint8_t* row, int n, int n4, int start,
-                              int blen, int child, bool& ovf) {
-  Sel s = {};
-  const int sh_rows = min(n4 / 4, (10 + 35 * 16 + 8) / 4 + 3);
-  const int head_pos = clampi(start, 0, n4 - 1);
-  const int base = (head_pos >> 2) * 4;
-  const Head hd = head_win(row, n, n4, base, sh_rows, head_pos - base, 3);
-  const int ps = start + hd.off;
-  const int end = ps + hd.len;
-  int cursor = ps;
-  bool all_ok = true, latch = false, past = false;
-#pragma unroll 1
-  for (int i = 0; i < 17; ++i) {
-    const bool present = cursor < end;
-    if (present && cursor - base > 10 + 35 * i) latch = true;
-    if (present && cursor > n4 - 1) past = true;
-    const Head it = head_win(row, n, n4, base, sh_rows, cursor - base,
-                             (10 + 35 * i + 8) / 4 + 2);
-    const int ips = cursor + it.off;
-    take_item(s, i, present, child, cursor, ips, it.len, it.list);
-    s.count += present;
-    all_ok = all_ok && (!present || it.ok);
-    if (present) cursor = ips + it.len;
-  }
-  ovf = ovf || latch || (past && end <= blen);
-  s.well_formed = hd.list && hd.ok && cursor == end && end <= blen && all_ok;
-  return s;
-}
-
-// byte fetches of a node buffer (every mode but `hinted1`)
-struct ByteFetch {
-  const uint8_t* row;
-  int n, n4;
-  __device__ Head head(int pos) const { return head_at(row, n, n4, pos); }
-  __device__ int first(int pos) const {
-    return byte_at(row, n, clampi(pos, 0, n4 - 1));
-  }
-};
-
-// `hinted1`: aligned 32-bit word loads of a node buffer of nw words
-// (n4 = 4 * nw bytes). The last two words loaded are kept, so fetches at
-// non-decreasing positions load each word once.
-struct WordFetch {
-  const uint32_t* w;
-  int nw;
-  int i0, i1;
-  uint32_t v0, v1;
-  __device__ uint32_t word(int j) {
-    if (j == i1) return v1;
-    if (j == i0) return v0;
-    const uint32_t v = j < nw ? w[j] : 0u;
-    i0 = i1;
-    v0 = v1;
-    i1 = j;
-    v1 = v;
-    return v;
-  }
-  __device__ Head head(int pos) {
-    const int pc = clampi(pos, 0, 4 * nw - 1);
-    const int r = pc & 3;
-    const uint32_t lo = word(pc >> 2);
-    const uint32_t hi = r ? word((pc >> 2) + 1) : 0u;
-    // bytes r..r+3 of the two little-endian words, in memory order
-    const uint32_t x = (uint32_t)((((uint64_t)hi << 32) | lo) >> (8 * r));
-    return head_fields(x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, x >> 24);
-  }
-  __device__ int first(int pos) {
-    const int pc = clampi(pos, 0, 4 * nw - 1);
-    return (word(pc >> 2) >> (8 * (pc & 3))) & 0xFF;
-  }
-};
-
-// `hinted` and its variants: every item fetched at its hint, the chain law
-// checked for all. short_slots: branch slots 2..15 decoded from their
-// first byte, with the long-form latch (`hinted4` clears it).
-template <class Fetch>
-__device__ Sel decode_hinted(Fetch& f, const uint8_t* hrow, int blen,
-                             int child, bool short_slots, bool& ovf) {
-  Sel s = {};
-  int h[18];
-#pragma unroll
-  for (int i = 0; i < 18; ++i) h[i] = (hrow[2 * i] << 8) | hrow[2 * i + 1];
-  const Head hd = f.head(0);
-  const int ps = hd.off;
-  const int end = ps + hd.len;
-  bool chain_ok = h[0] == ps;
-  bool all_ok = true;
-  bool latch = false;
-#pragma unroll
-  for (int i = 0; i < 17; ++i) {
-    const int hi = h[i];
-    const bool present = hi < end;
-    if (present && hi > 10 + 35 * i) latch = true;
-    int ipo, ipl;
-    bool ilist, ok;
-    if (short_slots && i >= 2 && i <= 15) {
-      // branch slots 2..15: the first byte decides a short-form header
-      const int b0 = f.first(hi);
-      const bool single = b0 < 0x80;
-      const bool short_str = b0 >= 0x80 && b0 <= 0xB7;
-      const bool short_list = b0 >= 0xC0 && b0 <= 0xF7;
-      const bool longf = !single && !short_str && !short_list;
-      if (present && longf) latch = true;
-      ipo = single ? 0 : 1;
-      ipl = single ? 1 : (short_str ? b0 - 0x80 : b0 - 0xC0);
-      ilist = b0 >= 0xC0;
-      ok = !longf;
-    } else {
-      const Head it = f.head(hi);
-      ipo = it.off;
-      ipl = it.len;
-      ilist = it.list;
-      ok = it.ok;
-    }
-    const int ips = hi + ipo;
-    chain_ok = chain_ok && (present ? h[i + 1] == ips + ipl : h[i + 1] == hi);
-    take_item(s, i, present, child, hi, ips, ipl, ilist);
-    s.count += present;
-    all_ok = all_ok && (!present || ok);
-  }
-  if (!chain_ok) latch = true;
-  ovf = ovf || latch;
-  s.well_formed = hd.list && hd.ok && h[17] == end && end <= blen && all_ok;
-  return s;
-}
-
-// extension/leaf: hex-prefix decode and nibble compare against the key
-__device__ Pair step_pair(const uint8_t* row, int n, int n4,
-                          const uint8_t* knib, int kn, int klen, int key_pos,
-                          int p0s, int p0l, bool p0list) {
-  Pair p;
-  const int pc = clampi(p0s, 0, n4 - 1);
-  const int b0 = byte_at(row, n, pc);
-  const int flag = b0 >> 4;
-  const int odd = flag & 1;
-  p.is_leaf = flag >= 2;
-  p.hp_ok = !p0list && p0l >= 1 && flag <= 3 && (odd == 1 || (b0 & 0x0F) == 0);
-  p.n_path = 2 * (p0l - 1) + odd;
-  // key window: positions clamp like the path window, nibbles past KN read 0
-  const int kn4 = (kn + 3) / 4 * 4;
-  const int kp = clampi(key_pos, 0, kn4 - 1);
-  bool match = true;
-  for (int j = 0; j < kn && j < p.n_path; ++j) {
-    const int k = j + 2 - odd;  // nibble index inside the path window
-    const int by = byte_at(row, n, pc + (k >> 1));
-    const int pn = (k & 1) ? (by & 0x0F) : (by >> 4);
-    const int kx = kp + j;
-    const int kv = kx < kn ? (int)knib[kx] : 0;
-    if (pn != kv) {
-      match = false;
-      break;
-    }
-  }
-  p.match = match && key_pos + p.n_path <= klen;
-  return p;
-}
-
-// first digest row dd < dlim equal to the 32 bytes at `expect`
-__device__ __forceinline__ bool digest_find(const uint8_t* dig, long long s1,
-                                            int dlim, const uint8_t* expect,
-                                            int& idx) {
-  for (int dd = 0; dd < dlim; ++dd) {
-    const uint8_t* r = dig + dd * s1;
-    bool eq = true;
-    for (int j = 0; j < 32 && eq; ++j) eq = r[j] == expect[j];
-    if (eq) {
-      idx = dd;
-      return true;
-    }
-  }
-  return false;
-}
-
-__global__ void mpt_walk_thread_kernel(const WalkArgs a) {
-  if (skip_batch(a)) return;  // the whole block
-  if (a.tally != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.tally, 1ULL);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.batch) return;
-  const int n = a.n;
-  const int n4 = (n + 3) / 4 * 4;
-  const uint8_t* nodes = a.nodes + b * a.nodes_s0;
-  const int32_t* lens = a.node_lens + b * a.lens_s0;
-  const uint8_t* dig = a.digests + b * a.dig_s0;
-  const uint8_t* root = a.roots + b * a.roots_s0;
-  const uint8_t* knib = a.knib + b * a.knib_s0;
-  const bool hinted = a.mode == HINTED || a.mode >= HINTED4;
-  const uint8_t* hints = hinted ? a.hints + b * a.hints_s0 : nullptr;
-  const int nnum = a.num_nodes[b];
-  const int klen = a.key_lens[b];
-  const int dlim = min(a.d, max(nnum, 0));
-
-  // ---- init: locate the root node by digest ----
-  int node_idx = 0;
-  const bool root_ok = digest_find(dig, a.dig_s1, dlim, root, node_idx);
-  bool root_is_empty = true;
-  for (int j = 0; j < 32; ++j) root_is_empty = root_is_empty && root[j] == kEmptyRoot[j];
-  int status = nnum == 0 ? (root_is_empty ? EXCLUDED : INVALID)
-                         : (root_ok ? RUNNING : INVALID);
-  int reason = status == INVALID ? R_ROOT_MISSING : R_NONE;
-  int off = 0, key_pos = 0, vnode = 0, vstart = 0, vlen = 0;
-  bool ovf = false;
-
-  for (int step = 0; step < a.max_steps && status == RUNNING; ++step) {
-    // the node row this step reads: node_idx, or in `ordered` the step's
-    // own row, with a latch where the two differ
-    int ri = node_idx;
-    if (a.mode == ORDERED) {
-      ri = min(step, a.d - 1);
-      if (node_idx != ri) ovf = true;
-    }
-    const uint8_t* row = nodes + ri * a.nodes_s1;
-    const int blen = lens[ri * a.lens_s1];
-    const int c_nib = (key_pos >= 0 && key_pos < a.kn) ? (int)knib[key_pos] : 0;
-
-    Sel s;
-    if (hinted) {
-      if (off != 0) ovf = true;  // an inline child: node-level hints cannot describe it
-      const uint8_t* hrow = hints + ri * a.hints_s1;
-      if (a.mode == HINTED1) {
-        WordFetch f = {reinterpret_cast<const uint32_t*>(row), n4 / 4, -1, -1, 0u, 0u};
-        s = decode_hinted(f, hrow, blen, c_nib, true, ovf);
-      } else {
-        ByteFetch f = {row, n, n4};
-        s = decode_hinted(f, hrow, blen, c_nib, a.mode != HINTED4, ovf);
-      }
-    } else if (a.mode == BOUNDED) {
-      s = decode_bounded(row, n, n4, off, blen, c_nib, ovf);
-    } else {
-      s = decode_exact(row, n, n4, off, blen, c_nib);
-    }
-
-    // ---- merge (mirrors ops/mpt._step_merge) ----
-    const bool is_branch = s.count == 17;
-    const bool is_pair = s.count == 2;
-    bool bad_node = !s.well_formed || (!is_branch && !is_pair);
-    const bool key_exhausted = key_pos >= klen;
-    const bool branch_found = is_branch && key_exhausted && s.i16_len > 0;
-    const bool branch_excl = is_branch && key_exhausted && s.i16_len == 0;
-    const bool take_child = is_branch && !key_exhausted;
-    const bool child_empty = take_child && !s.c_list && s.c_len == 0;
-
-    Pair p = {false, true, false, 0};  // read only where is_pair
-    // `pairskip`: the pair block runs for all of the warp's live threads
-    // when any of them is on a pair node (threads that have left the step
-    // loop are out of the vote)
-    const bool run_pair = a.mode == PAIRSKIP ? __any_sync(__activemask(), is_pair)
-                                             : is_pair;
-    if (run_pair) {
-      p = step_pair(row, n, n4, knib, a.kn, klen, key_pos, s.i0_pay, s.i0_len,
-                    s.i0_list);
-    }
-    const bool leaf_found =
-        is_pair && p.is_leaf && p.match && key_pos + p.n_path == klen;
-    const bool leaf_excl = is_pair && p.is_leaf && !leaf_found;
-    const bool ext_bad = is_pair && !p.is_leaf && p.n_path == 0;
-    const bool ext_excl = is_pair && !p.is_leaf && !p.match;
-    const bool ext_child = is_pair && !p.is_leaf && p.match && !ext_bad;
-    bad_node = bad_node || (is_pair && !p.hp_ok) || ext_bad;
-
-    const bool has_child = (take_child && !child_empty) || ext_child;
-    const int cstart = take_child ? s.c_start : s.i1_start;
-    const int cpay = take_child ? s.c_pay : s.i1_pay;
-    const int cplen = take_child ? s.c_len : s.i1_len;
-    const bool clist = take_child ? s.c_list : s.i1_list;
-    const bool child_hash = has_child && !clist && cplen == 32;
-    const bool child_inline = has_child && clist;
-    const bool child_bad = has_child && !clist && cplen != 32;
-
-    int nxt = 0;
-    bool have_next = false;
-    if (child_hash) {
-      uint8_t expect[32];
-      const int cp = clampi(cpay, 0, n4 - 1);
-      for (int j = 0; j < 32; ++j) expect[j] = (uint8_t)byte_at(row, n, cp + j);
-      have_next = digest_find(dig, a.dig_s1, dlim, expect, nxt);
-    }
-    const bool hash_fail = child_hash && !have_next;
-
-    const int new_status =
-        (bad_node || child_bad || hash_fail) ? INVALID
-        : (branch_found || leaf_found)       ? FOUND
-        : (branch_excl || child_empty || leaf_excl || ext_excl) ? EXCLUDED
-                                                                : RUNNING;
-    if (new_status == FOUND) {
-      vnode = node_idx;
-      vstart = leaf_found ? s.i1_pay : s.i16_pay;
-      vlen = leaf_found ? s.i1_len : s.i16_len;
-    }
-    key_pos = take_child ? key_pos + 1 : (ext_child ? key_pos + p.n_path : key_pos);
-    off = child_hash ? 0 : (child_inline ? cstart : off);
-    node_idx = child_hash ? nxt : node_idx;
-    reason = bad_node    ? R_MALFORMED
-             : child_bad ? R_BAD_CHILD_REF
-             : hash_fail ? R_HASH_MISMATCH
-                         : reason;
-    status = new_status;
-  }
-
-  int32_t* o = a.out + (long long)b * 6;
-  o[0] = status == RUNNING ? INVALID : status;
-  o[1] = vnode;
-  o[2] = vstart;
-  o[3] = vlen;
-  o[4] = ovf ? 1 : 0;
-  o[5] = status == RUNNING ? R_TRUNCATED : reason;
-
-  // value bytes, byte-aligned and masked by vlen
-  if (a.max_value_len > 0) {
-    uint8_t* v = a.values + (long long)b * a.max_value_len;
-    const uint8_t* vrow = nodes + vnode * a.nodes_s1;
-    const int vc = clampi(vstart, 0, n4 - 1);
-    for (int j = 0; j < a.max_value_len; ++j) {
-      v[j] = (uint8_t)(j < vlen ? byte_at(vrow, n, vc + j) : 0);
-    }
-  }
-}
-
-
 // ---------------------------------------------------------------------------
-// The warp kernel: a group of lanes per proof over a shared-memory slab.
+// The kernel: a group of lanes per proof over a shared-memory slab.
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWarps = 4;               // warps per block
@@ -760,7 +374,7 @@ __device__ void stage_rows(uint8_t* dst, int dst_stride, const uint8_t* src,
 // shared memory, 16-byte aligned): lane dd % G compares row dd, the lowest
 // matching row wins. The same result on every lane of the group.
 template <int G>
-__device__ __forceinline__ bool warp_find(const uint8_t* dig, int dlim,
+__device__ __forceinline__ bool digest_find(const uint8_t* dig, int dlim,
                                           const uint8_t* expect, int& idx,
                                           const Group<G>& g) {
   const uint4 e0 = reinterpret_cast<const uint4*>(expect)[0];
@@ -800,7 +414,7 @@ __device__ __forceinline__ uint32_t row_word(const uint8_t* row, bool sh,
          ((uint32_t)byte_at(row, n, pos + 3) << 24);
 }
 
-// the warp kernel's reads of a node row: a shared slab row (aligned words,
+// the kernel's reads of a node row: a shared slab row (aligned words,
 // zero from byte n to the stride s) or a row in device memory (bytes)
 struct RowFetch {
   const uint8_t* row;
@@ -809,7 +423,7 @@ struct RowFetch {
   __device__ uint32_t bytes4(int pos) const {  // pos >= 0
     return row_word(row, sh, s, n, pos);
   }
-  // RLP header at pos, clamped like head_at
+  // RLP header at pos clamped to [0, n4 - 1] (rlp.item_head_window)
   __device__ Head head(int pos) const {
     const uint32_t x = bytes4(clampi(pos, 0, n4 - 1));
     return head_fields(x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, x >> 24);
@@ -819,9 +433,9 @@ struct RowFetch {
   }
 };
 
-// decode_exact through a RowFetch
-__device__ Sel decode_exact_warp(const RowFetch& f, int start, int blen,
-                                 int child) {
+// `exact`: serial decode of the node at byte offset `start`
+__device__ Sel decode_exact(const RowFetch& f, int start, int blen,
+                            int child) {
   Sel s = {};
   const Head hd = f.head(start);
   const int ps = start + hd.off;
@@ -842,11 +456,11 @@ __device__ Sel decode_exact_warp(const RowFetch& f, int start, int blen,
   return s;
 }
 
-// head_win through a RowFetch: the window's bytes as one word, the bytes
-// at or past the window's end masked off
-__device__ __forceinline__ Head head_win_warp(const RowFetch& f, int base,
-                                              int sh_rows, int rel,
-                                              int hi_rows) {
+// `bounded`: the header at window offset `rel`, through the first hi_rows
+// of the sh_rows words of the window that starts at `base` (the window's
+// bytes as one word, the bytes at or past the window's end masked off)
+__device__ __forceinline__ Head head_win(const RowFetch& f, int base,
+                                         int sh_rows, int rel, int hi_rows) {
   const int wp = clampi(rel, 0, f.n4 - 1) >> 2;
   if (wp >= min(sh_rows, hi_rows)) return head_fields(0, 0, 0, 0);
   const int k = 4 * wp + (rel & 3);
@@ -856,15 +470,16 @@ __device__ __forceinline__ Head head_win_warp(const RowFetch& f, int base,
   return head_fields(x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, x >> 24);
 }
 
-// decode_bounded through a RowFetch
-__device__ Sel decode_bounded_warp(const RowFetch& f, int start, int blen,
-                                   int child, bool& ovf) {
+// `bounded`: serial decode of the node at byte offset `start` through
+// bounded windows; sets ovf where an item lies past its window
+__device__ Sel decode_bounded(const RowFetch& f, int start, int blen,
+                              int child, bool& ovf) {
   Sel s = {};
   const int n4 = f.n4;
   const int sh_rows = min(n4 / 4, (10 + 35 * 16 + 8) / 4 + 3);
   const int head_pos = clampi(start, 0, n4 - 1);
   const int base = (head_pos >> 2) * 4;
-  const Head hd = head_win_warp(f, base, sh_rows, head_pos - base, 3);
+  const Head hd = head_win(f, base, sh_rows, head_pos - base, 3);
   const int ps = start + hd.off;
   const int end = ps + hd.len;
   int cursor = ps;
@@ -874,8 +489,8 @@ __device__ Sel decode_bounded_warp(const RowFetch& f, int start, int blen,
     const bool present = cursor < end;
     if (present && cursor - base > 10 + 35 * i) latch = true;
     if (present && cursor > n4 - 1) past = true;
-    const Head it = head_win_warp(f, base, sh_rows, cursor - base,
-                                  (10 + 35 * i + 8) / 4 + 2);
+    const Head it = head_win(f, base, sh_rows, cursor - base,
+                             (10 + 35 * i + 8) / 4 + 2);
     const int ips = cursor + it.off;
     take_item(s, i, present, child, cursor, ips, it.len, it.list);
     s.count += present;
@@ -888,11 +503,12 @@ __device__ Sel decode_bounded_warp(const RowFetch& f, int start, int blen,
 }
 
 // `hinted` and its variants, a warp per node: lane i (0..16) decodes item i
-// at its hint; the results are those of decode_hinted. short_slots: branch
-// slots 2..15 decoded from their first byte, with the long-form latch.
-__device__ Sel decode_hinted_warp(const RowFetch& f, const uint8_t* hrow,
-                                  int blen, int child, bool short_slots,
-                                  bool& ovf, int lane) {
+// at its hint, and ballots check the chain law for all. short_slots: branch
+// slots 2..15 decoded from their first byte, with the long-form latch
+// (`hinted4` clears it).
+__device__ Sel decode_hinted(const RowFetch& f, const uint8_t* hrow, int blen,
+                             int child, bool short_slots, bool& ovf,
+                             int lane) {
   const Head hd = f.head(0);
   const int ps = hd.off;
   const int end = ps + hd.len;
@@ -960,13 +576,13 @@ __device__ Sel decode_hinted_warp(const RowFetch& f, const uint8_t* hrow,
   return s;
 }
 
-// step_pair with the nibble compare split over the group's lanes (the same
-// result on every lane of the group)
+// extension/leaf: hex-prefix decode and nibble compare against the key,
+// the compare split over the group's lanes (the same result on every lane
+// of the group); key nibbles past KN read 0
 template <int G>
-__device__ Pair step_pair_warp(const uint8_t* row, int n, int n4,
-                               const uint8_t* knib, int kn, int klen,
-                               int key_pos, int p0s, int p0l, bool p0list,
-                               const Group<G>& g) {
+__device__ Pair step_pair(const uint8_t* row, int n, int n4,
+                          const uint8_t* knib, int kn, int klen, int key_pos,
+                          int p0s, int p0l, bool p0list, const Group<G>& g) {
   Pair p;
   const int pc = clampi(p0s, 0, n4 - 1);
   const int b0 = byte_at(row, n, pc);
@@ -1076,7 +692,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   // ---- init: locate the root node by digest ----
   int node_idx = 0;
-  const bool root_ok = warp_find(s_dig, dlim, s_root, node_idx, g);
+  const bool root_ok = digest_find(s_dig, dlim, s_root, node_idx, g);
   bool root_is_empty = true;
   for (int j = 0; j < 32; ++j) root_is_empty = root_is_empty && s_root[j] == kEmptyRoot[j];
   int status = nnum == 0 ? (root_is_empty ? EXCLUDED : INVALID)
@@ -1114,12 +730,12 @@ __global__ void __launch_bounds__(kWarps * 32)
       if (off != 0) ovf = true;  // an inline child: node-level hints cannot describe it
       const uint8_t* hrow = ri < dlim ? s_hint + ri * 36 : hints + ri * a.hints_s1;
       if constexpr (G == 32) {  // the host launches hinted modes with G = 32
-        s = decode_hinted_warp(f, hrow, blen, c_nib, a.mode != HINTED4, ovf, lane);
+        s = decode_hinted(f, hrow, blen, c_nib, a.mode != HINTED4, ovf, lane);
       }
     } else if (a.mode == BOUNDED) {
-      s = decode_bounded_warp(f, off, blen, c_nib, ovf);
+      s = decode_bounded(f, off, blen, c_nib, ovf);
     } else {
-      s = decode_exact_warp(f, off, blen, c_nib);
+      s = decode_exact(f, off, blen, c_nib);
     }
 
     // ---- merge (mirrors ops/mpt._step_merge), warp-uniform ----
@@ -1136,8 +752,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     // over the proofs walked together is this proof's own is_pair
     Pair p = {false, true, false, 0};
     if (is_pair) {
-      p = step_pair_warp(row, n, n4, s_knib, a.kn, klen, key_pos, s.i0_pay,
-                         s.i0_len, s.i0_list, g);
+      p = step_pair(row, n, n4, s_knib, a.kn, klen, key_pos, s.i0_pay,
+                    s.i0_len, s.i0_list, g);
     }
     const bool leaf_found =
         is_pair && p.is_leaf && p.match && key_pos + p.n_path == klen;
@@ -1163,7 +779,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       g.sync();
       for (int j = lane; j < 32; j += G) s_expect[j] = (uint8_t)byte_at(row, n, cp + j);
       g.sync();
-      have_next = warp_find(s_dig, dlim, s_expect, nxt, g);
+      have_next = digest_find(s_dig, dlim, s_expect, nxt, g);
     }
     const bool hash_fail = child_hash && !have_next;
 
@@ -1212,19 +828,6 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// guard[0] = 1 if any proof's overflow word (out[b * 6 + 4]) is set, else
-// 0. One block: a batch's flags are a few KB. The baseline of the fold
-// (above); no path launches it.
-__global__ void __launch_bounds__(1024)
-    walk_guard_kernel(const int32_t* out, int batch, int32_t* guard) {
-  int any = 0;
-  for (int b = threadIdx.x; b < batch; b += blockDim.x) {
-    any |= out[(long long)b * 6 + 4] != 0;
-  }
-  any = __syncthreads_or(any);
-  if (threadIdx.x == 0) *guard = any;
-}
-
 int round16(long long x) { return (int)((x + 15) / 16 * 16); }
 
 // lanes a proof: a warp for the hinted modes' parallel decode, a smaller
@@ -1265,16 +868,7 @@ WarpLayout warp_layout(const WalkArgs& a) {
 
 }  // namespace
 
-extern "C" int zkp_mpt_walk_thread(const WalkArgs* args, void* stream) {
-  if (args->batch > 0) {
-    const int threads = 32;
-    const int blocks = (args->batch + threads - 1) / threads;
-    mpt_walk_thread_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
-  }
-  return (int)cudaGetLastError();
-}
-
-// the warp kernel (the walk of every path)
+// one launch of the kernel on these arguments
 extern "C" int zkp_mpt_walk(const WalkArgs* args, void* stream) {
   if (args->batch > 0) {
     const WarpLayout L = warp_layout(*args);
@@ -1304,7 +898,7 @@ extern "C" int zkp_mpt_walk(const WalkArgs* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// the warp kernel's shared memory for these arguments: out[0] the staging
+// the kernel's shared memory for these arguments: out[0] the staging
 // (0 all rows, 1 one row at a time, 2 rows read from device memory),
 // out[1] lanes a proof, out[2] bytes a proof, out[3] bytes a block
 extern "C" void zkp_walk_layout(const WalkArgs* args, int* out) {
@@ -1313,13 +907,6 @@ extern "C" void zkp_walk_layout(const WalkArgs* args, int* out) {
   out[1] = mpt_walk_lanes_for(args->mode);
   out[2] = L.bytes;
   out[3] = kWarps * 32 / out[1] * L.bytes;
-}
-
-// the baseline guard of a guarded `exact` launch (walk_guard_kernel)
-extern "C" int zkp_walk_guard(const int32_t* out, int batch, int32_t* guard,
-                              void* stream) {
-  walk_guard_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(out, batch, guard);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int zkp_walk_args_size() { return (int)sizeof(WalkArgs); }

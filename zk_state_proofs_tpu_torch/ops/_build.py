@@ -73,24 +73,16 @@ def _digest() -> str:
 
 
 def _declare(lib) -> None:
-    for name in ("zkp_keccak256_rows", "zkp_keccak256_rows_thread"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p]
-    for name in ("zkp_keccak256_raw", "zkp_keccak256_raw_thread"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    for name in ("zkp_mpt_walk", "zkp_mpt_walk_thread"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.zkp_walk_guard.restype = ctypes.c_int
-    lib.zkp_walk_guard.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                                   ctypes.c_void_p]
+    lib.zkp_keccak256_rows.restype = ctypes.c_int
+    lib.zkp_keccak256_rows.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p]
+    lib.zkp_keccak256_raw.restype = ctypes.c_int
+    lib.zkp_keccak256_raw.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+    lib.zkp_mpt_walk.restype = ctypes.c_int
+    lib.zkp_mpt_walk.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.zkp_walk_layout.restype = None
     lib.zkp_walk_layout.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.zkp_walk_args_size.restype = ctypes.c_int

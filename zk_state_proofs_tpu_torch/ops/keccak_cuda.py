@@ -3,15 +3,10 @@
 K1 replaces `zk_state_proofs_tpu.ops.keccak_pallas._keccak_kernel` (entered
 there through `keccak256_tpu`). A warp hashes one message from its raw row
 bytes and length, padding inside the kernel; see the source for the design
-and what bounds it. `keccak256_cuda_thread` launches the
-one-thread-per-message kernel that came before it, kept only as the
-baseline of a same-run A/B (`chip_smoke.py`) and for the kernel tests; no
-path calls it. K3 replaces `_keccak_kernel_raw` (entered through
+and what bounds it. K3 replaces `_keccak_kernel_raw` (entered through
 `keccak256_tpu_raw`): the same digests on K1's warp sponge, with every
 rate word read as one aligned little-endian 8-byte load and the padding
-applied by masks; `keccak256_cuda_raw_thread` launches the
-one-thread-per-message K3 that came before it, the baseline of the same
-A/B. As in the JAX package, K3 is not on the verify path.
+applied by masks. As in the JAX package, K3 is not on the verify path.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the plain
 version (`ops.keccak.keccak256`, `ops.keccak.keccak256_raw`), a CUDA tensor
@@ -26,11 +21,13 @@ from . import keccak
 from ._build import check_launch, launch_counts, load_library
 
 LAUNCHES = launch_counts("keccak256", "keccak256_raw")
-THREAD_LAUNCHES = {"keccak256": 0, "keccak256_raw": 0}  # the _thread wrappers'
 
 
-def _rows_launch(entry, counts, rows, lens):
-    """Check rows and lens, launch the C entry point `entry`, count it."""
+def keccak256_cuda(rows, lens):
+    """rows u8 [U, W] (last dim contiguous; any row stride), lens i32 [U]
+    -> digests u8 [U, 32] of each row's first lens[i] bytes."""
+    if rows.device.type == "cpu":
+        return keccak.keccak256(rows, lens)
     if rows.device.type != "cuda":
         raise ValueError(f"keccak256_cuda: unsupported device {rows.device}")
     if rows.dtype != torch.uint8 or rows.ndim != 2:
@@ -45,33 +42,23 @@ def _rows_launch(entry, counts, rows, lens):
     out = torch.empty((u, 32), dtype=torch.uint8, device=rows.device)
     if u == 0:
         return out
-    lib = load_library().lib
     stream = torch.cuda.current_stream(rows.device).cuda_stream
-    rc = getattr(lib, entry)(rows.data_ptr(), rows.stride(0), rows.shape[1],
-                             lens.data_ptr(), u, out.data_ptr(), stream)
+    rc = load_library().lib.zkp_keccak256_rows(rows.data_ptr(), rows.stride(0),
+                                               rows.shape[1], lens.data_ptr(), u,
+                                               out.data_ptr(), stream)
     check_launch(rc, "keccak256 kernel")
-    counts["keccak256"] += 1
+    LAUNCHES["keccak256"] += 1
     return out
 
 
-def keccak256_cuda(rows, lens):
-    """rows u8 [U, W] (last dim contiguous; any row stride), lens i32 [U]
-    -> digests u8 [U, 32] of each row's first lens[i] bytes."""
-    if rows.device.type == "cpu":
-        return keccak.keccak256(rows, lens)
-    return _rows_launch("zkp_keccak256_rows", LAUNCHES, rows, lens)
-
-
-def keccak256_cuda_thread(rows, lens):
-    """keccak256_cuda on the one-thread-per-message kernel (CUDA tensors
-    only): the same digests, for the A/B against the warp sponge."""
-    return _rows_launch("zkp_keccak256_rows_thread", THREAD_LAUNCHES, rows, lens)
-
-
-def _raw_launch(entry, counts, data, lengths):
-    """Check data and lengths, pad the rows to 8-byte aligned rows of a
-    multiple of 8 bytes (as keccak256_tpu_raw pads them) where they are
-    not, launch the C entry point `entry`, count it."""
+def keccak256_cuda_raw(data, lengths):
+    """data u8 [B, L], lengths i32 [B] -> digests u8 [B, 32] of each row's
+    first lengths[i] bytes, as `keccak256_cuda` gives them (K3, a warp a
+    message). The rows are padded to 8-byte aligned rows of a multiple of 8
+    bytes (as keccak256_tpu_raw pads them) where they are not, so that every
+    rate word is one aligned load."""
+    if data.device.type == "cpu":
+        return keccak.keccak256_raw(data, lengths)
     if data.device.type != "cuda":
         raise ValueError(f"keccak256_cuda_raw: unsupported device {data.device}")
     if data.dtype != torch.uint8 or data.ndim != 2:
@@ -90,27 +77,11 @@ def _raw_launch(entry, counts, data, lengths):
         rows[:, :width] = data
     else:
         rows = data
-    lib = load_library().lib
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    rc = getattr(lib, entry)(rows.data_ptr(), rows.shape[1] // 4,
-                             width // keccak.RATE + 1, lengths.data_ptr(), b,
-                             out.data_ptr(), stream)
+    rc = load_library().lib.zkp_keccak256_raw(rows.data_ptr(), rows.shape[1] // 4,
+                                              width // keccak.RATE + 1,
+                                              lengths.data_ptr(), b, out.data_ptr(),
+                                              stream)
     check_launch(rc, "keccak256_raw kernel")
-    counts["keccak256_raw"] += 1
+    LAUNCHES["keccak256_raw"] += 1
     return out
-
-
-def keccak256_cuda_raw(data, lengths):
-    """data u8 [B, L], lengths i32 [B] -> digests u8 [B, 32] of each row's
-    first lengths[i] bytes, as `keccak256_cuda` gives them (K3, a warp a
-    message). The rows are padded to a multiple of 8 bytes where they are
-    not, so that every rate word is one aligned load."""
-    if data.device.type == "cpu":
-        return keccak.keccak256_raw(data, lengths)
-    return _raw_launch("zkp_keccak256_raw", LAUNCHES, data, lengths)
-
-
-def keccak256_cuda_raw_thread(data, lengths):
-    """keccak256_cuda_raw on the one-thread-per-message K3 (CUDA tensors
-    only): the same digests, for the A/B against the warp sponge."""
-    return _raw_launch("zkp_keccak256_raw_thread", THREAD_LAUNCHES, data, lengths)

@@ -8,11 +8,8 @@ tries) and its variants `hinted4`, `hinted1`, `ordered` and `pairskip`
 `exact` (the fallback of all of them).
 
 `walk_lanes` is the kernel's wrapper (a CPU tensor takes the plain version,
-`ops.mpt.walk_kernel_plain`): it launches the warp-per-proof kernel, whose
-design the source describes. `walk_lanes_thread` launches the
-one-thread-per-proof kernel that came before it, kept only as the baseline
-of a same-run A/B (`chip_smoke.py`) and for the kernel tests; no path
-calls it. `walk_batch_cuda` and
+`ops.mpt.walk_kernel_plain`): it launches the group-of-lanes-per-proof
+kernel, whose design the source describes. `walk_batch_cuda` and
 `walk_batch_cuda_segmented` are the ports of `walk_batch_pallas` and
 `walk_batch_pallas_segmented`. When any proof latches the overflow flag in
 `hinted` or `bounded` mode, the whole batch is walked again in `exact`, as
@@ -20,16 +17,12 @@ on the TPU, and the card decides it with no launch of its own
 (`rerun_exact`): the first walk carries a fresh tag (`next_tag`) and
 stores it into the tag's slot of the device's flag ring where a proof
 latched, and the guarded `exact` launch walks only where the slot holds
-the tag. The host reads no flag. `walk_guard` and
-`rerun_exact_guard_kernel`, the guard kernel and its guarded launch that
-came before the fold, stay only as the baseline of a same-run A/B
-(`chip_smoke.py`); no path calls them.
+the tag. The host reads no flag.
 
 Counts: LAUNCHES[mode] counts the walk kernel's launches in each mode,
-guarded `exact` launches included; LAUNCHES["guard"] the baseline guard
-kernel's (0 on every path). `exact_walked(device)` reads the device tally
-of guarded launches that walked (one sync; `reset_counts` zeroes every
-count).
+guarded `exact` launches included. `exact_walked(device)` reads the device
+tally of guarded launches that walked (one sync; `reset_counts` zeroes
+every count).
 """
 
 from __future__ import annotations
@@ -45,8 +38,7 @@ from ._build import check_launch, launch_counts, load_library
 
 _MODE_CODE = {"exact": 0, "hinted": 1, "bounded": 2, "hinted4": 3,  # WalkArgs.mode
               "hinted1": 4, "ordered": 5, "pairskip": 6}
-LAUNCHES = launch_counts(*_MODE_CODE, "guard")
-THREAD_LAUNCHES = dict.fromkeys(_MODE_CODE, 0)  # walk_lanes_thread's
+LAUNCHES = launch_counts(*_MODE_CODE)
 _TALLY: dict = {}  # device -> int64 [1]: guarded `exact` launches that walked
 # A device's flag ring: slot tag % FLAG_RING holds the last tag whose first
 # walk latched there. Up to FLAG_RING first walks may be queued ahead of
@@ -54,6 +46,7 @@ _TALLY: dict = {}  # device -> int64 [1]: guarded `exact` launches that walked
 FLAG_RING = 4096
 _FLAGS: dict = {}  # device -> int64 [FLAG_RING], zero when made, never zeroed again
 _TAGS = itertools.count(1)  # next() is atomic under the interpreter lock
+_CHECKED = None  # the KernelLibrary whose WalkArgs layout matched this module's
 
 
 class WalkArgs(ctypes.Structure):
@@ -76,8 +69,8 @@ class WalkArgs(ctypes.Structure):
         ("batch", ctypes.c_int), ("d", ctypes.c_int), ("n", ctypes.c_int),
         ("kn", ctypes.c_int), ("max_steps", ctypes.c_int),
         ("max_value_len", ctypes.c_int), ("mode", ctypes.c_int),
-        ("guard", ctypes.c_void_p), ("tally", ctypes.c_void_p),
-        ("flag", ctypes.c_void_p), ("tag", ctypes.c_ulonglong),
+        ("tally", ctypes.c_void_p), ("flag", ctypes.c_void_p),
+        ("tag", ctypes.c_ulonglong),
     ]
 
 
@@ -95,31 +88,28 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous along its last dim")
 
 
-def _word_aligned(nodes):
-    """nodes as the thread kernel's `hinted1` word loads need them: N a
-    multiple of 4 and every row 4-byte aligned; else a copy zero-padded to
-    N4 (as `walk_batch_pallas` pads). Bytes past N read 0 either way, so
-    the results do not change. (The warp kernel reads `hinted1`'s words
-    from its shared-memory slab and needs no copy.)"""
-    b, d, n = nodes.shape
-    if (n % 4 == 0 and nodes.stride(0) % 4 == 0 and nodes.stride(1) % 4 == 0
-            and nodes.data_ptr() % 4 == 0):
-        return nodes
-    out = torch.zeros((b, d, -(-n // 4) * 4), dtype=nodes.dtype, device=nodes.device)
-    out[..., :n] = nodes
-    return out
+def _library():
+    """The kernel library, its `WalkArgs` layout checked against this
+    module's once per loaded library (RuntimeError on a mismatch, before
+    any launch)."""
+    global _CHECKED
+    kl = load_library()
+    if kl is not _CHECKED:
+        if kl.lib.zkp_walk_args_size() != ctypes.sizeof(WalkArgs):
+            raise RuntimeError("WalkArgs layout differs between Python and CUDA")
+        _CHECKED = kl
+    return kl.lib
 
 
 def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
-               key_lens, max_value_len, max_steps, hints, aligned, into=None,
-               guard=None, tally=None, tag=None):
+               key_lens, max_value_len, max_steps, hints, into=None, tally=None,
+               tag=None):
     """Check the inputs and allocate the outputs of one launch: (WalkArgs,
     out, values), or (None, out, values) for an empty batch. `into`: the
     (out, values) of an earlier launch on the same batch, written in
-    place; `guard`: the baseline guard's device int; `tally`: a device
-    int64 the launch adds one to when it walks; `tag`: the re-run flag's
-    tag (a first walk stores it, an `exact` launch walks only where its
-    slot holds it)."""
+    place; `tally`: a device int64 the launch adds one to when it walks;
+    `tag`: the re-run flag's tag (a first walk stores it, an `exact`
+    launch walks only where its slot holds it)."""
     if nodes.device.type != "cuda":
         raise ValueError(f"walk_lanes: unsupported device {nodes.device}")
     if mode not in mpt.WALK_MODES:
@@ -143,9 +133,6 @@ def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
         _check("hints", hints, torch.uint8, (b, d, 36), dev)
     if n < 1 or kn < 1 or max_value_len < 0 or max_steps < 0:
         raise ValueError("walk_lanes: empty node or key axis, or negative sizes")
-    if aligned and mode == "hinted1":
-        nodes = _word_aligned(nodes)
-        n = nodes.shape[2]
     if into is None:
         out = torch.empty((b, 6), dtype=torch.int32, device=dev)
         values = torch.empty((b, max_value_len), dtype=torch.uint8, device=dev)
@@ -165,28 +152,21 @@ def _walk_args(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
         hints.stride(0) if hinted else 0, hints.stride(1) if hinted else 0,
         out.data_ptr(), values.data_ptr(),
         b, d, n, kn, max_steps, max_value_len, _MODE_CODE[mode],
-        None if guard is None else guard.data_ptr(),
         None if tally is None else tally.data_ptr(),
         None if tag is None else _flag_slot_ptr(dev, tag), 0 if tag is None else tag)
-    args.keep = nodes  # a padded copy lives as long as the struct
     return args, out, values
 
 
-def _launch(entry, counts, mode, *tensors, aligned, into=None, guard=None,
-            tally=None, tag=None):
-    """One launch of the C entry point `entry` on walk_lanes' inputs,
-    counted in `counts`; (out, values) as walk_lanes returns them."""
-    args, out, values = _walk_args(mode, *tensors, aligned=aligned, into=into,
-                                   guard=guard, tally=tally, tag=tag)
+def _launch(mode, *tensors, into=None, tally=None, tag=None):
+    """One launch of the walk kernel on walk_lanes' inputs, counted in
+    LAUNCHES; (out, values) as walk_lanes returns them."""
+    args, out, values = _walk_args(mode, *tensors, into=into, tally=tally, tag=tag)
     if args is None:
         return out, values
-    lib = load_library().lib
-    if lib.zkp_walk_args_size() != ctypes.sizeof(WalkArgs):
-        raise RuntimeError("WalkArgs layout differs between Python and CUDA")
+    lib = _library()
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = getattr(lib, entry)(ctypes.byref(args), stream)
-    check_launch(rc, f"mpt walk kernel ({mode})")
-    counts[mode] += 1
+    check_launch(lib.zkp_mpt_walk(ctypes.byref(args), stream), f"mpt walk kernel ({mode})")
+    LAUNCHES[mode] += 1
     return out, values
 
 
@@ -198,12 +178,11 @@ def walk_layout(mode: str, nodes, node_lens, num_nodes, digests, roots,
     memory", "lanes": lanes a proof, "proof_bytes": ..., "block_bytes":
     ...}. Launches nothing."""
     args, _, _ = _walk_args(mode, nodes, node_lens, num_nodes, digests, roots,
-                            key_nibbles, key_lens, max_value_len, max_steps,
-                            hints, aligned=False)
+                            key_nibbles, key_lens, max_value_len, max_steps, hints)
     if args is None:
         return None
     got = (ctypes.c_int * 4)()
-    load_library().lib.zkp_walk_layout(ctypes.byref(args), got)
+    _library().zkp_walk_layout(ctypes.byref(args), got)
     return {"staging": ("all rows", "one row at a time", "device memory")[got[0]],
             "lanes": got[1], "proof_bytes": got[2], "block_bytes": got[3]}
 
@@ -223,19 +202,8 @@ def walk_lanes(mode: str, nodes, node_lens, num_nodes, digests, roots,
                                      max_value_len, max_steps, hints)
     if tag is not None and mode == "exact":
         raise ValueError("walk_lanes: a tag records a first (hinted or bounded) walk's flag")
-    return _launch("zkp_mpt_walk", LAUNCHES, mode, nodes, node_lens, num_nodes,
-                   digests, roots, key_nibbles, key_lens, max_value_len,
-                   max_steps, hints, aligned=False, tag=tag)
-
-
-def walk_lanes_thread(mode: str, nodes, node_lens, num_nodes, digests, roots,
-                      key_nibbles, key_lens, max_value_len: int, max_steps: int,
-                      hints=None):
-    """walk_lanes on the one-thread-per-proof kernel (CUDA tensors only):
-    the same results, for the A/B against the warp kernel."""
-    return _launch("zkp_mpt_walk_thread", THREAD_LAUNCHES, mode, nodes,
-                   node_lens, num_nodes, digests, roots, key_nibbles, key_lens,
-                   max_value_len, max_steps, hints, aligned=True)
+    return _launch(mode, nodes, node_lens, num_nodes, digests, roots, key_nibbles,
+                   key_lens, max_value_len, max_steps, hints, tag=tag)
 
 
 def _card(device) -> torch.device:
@@ -264,9 +232,8 @@ def exact_walked(device) -> int:
 def reset_counts() -> None:
     """Zero the launch counts and every device tally (not the flag rings,
     whose slots need no zeroing)."""
-    for counts in (LAUNCHES, THREAD_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
     for t in _TALLY.values():
         t.zero_()
 
@@ -309,24 +276,6 @@ def guard_plain(out):
     return (out[:, 4] != 0).any().to(torch.int32).reshape(1)
 
 
-def walk_guard(out):
-    """The baseline guard kernel (no path calls it): i32 [1], as
-    guard_plain, from one launch of its own. A CPU tensor takes
-    guard_plain."""
-    if out.device.type == "cpu":
-        return guard_plain(out)
-    if out.device.type != "cuda" or out.dtype != torch.int32 or out.ndim != 2 \
-            or out.shape[1] != 6 or not out.is_contiguous():
-        raise ValueError(f"walk_guard: want contiguous i32 [B, 6] on the card, got "
-                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
-    guard = torch.empty(1, dtype=torch.int32, device=out.device)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    check_launch(load_library().lib.zkp_walk_guard(
-        out.data_ptr(), out.shape[0], guard.data_ptr(), stream), "walk guard kernel")
-    LAUNCHES["guard"] += 1
-    return guard
-
-
 def rerun_exact(out, values, args, tag: int | None):
     """Walk the batch again in `exact` where any proof latched the
     overflow flag — the counterpart of the TPU path's jax.lax.cond. On the
@@ -343,20 +292,8 @@ def rerun_exact(out, values, args, tag: int | None):
             return walk_lanes("exact", *args) if bool(guard_plain(out)) else (out, values)
         if tag is None:
             raise ValueError("rerun_exact: a batch on the card needs its first walk's tag")
-        return _launch("zkp_mpt_walk", LAUNCHES, "exact", *args, None, aligned=False,
-                       into=(out, values), tally=exact_tally(out.device), tag=tag)
-
-
-def rerun_exact_guard_kernel(out, values, args):
-    """rerun_exact as it was before the flag was folded into the first
-    walk (CUDA tensors; baseline of the A/B only, no path calls it): the
-    guard kernel ORs out's flags into a device int, and the `exact` launch
-    that follows walks only where it is 1."""
-    if out.shape[0] == 0:
-        return out, values
-    return _launch("zkp_mpt_walk", LAUNCHES, "exact", *args, None, aligned=False,
-                   into=(out, values), guard=walk_guard(out),
-                   tally=exact_tally(out.device))
+        return _launch("exact", *args, None, into=(out, values),
+                       tally=exact_tally(out.device), tag=tag)
 
 
 def walk_batch_cuda(nodes, node_lens, num_nodes, digests, roots, key_nibbles,
