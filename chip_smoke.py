@@ -523,10 +523,12 @@ def main() -> None:
     t0 = time.time()
     results = []
     for req in requests:
-        staged = svc.stats.staged_batches
+        staged, walked = svc.stats.staged_batches, svc.stats.walked_batches
         results.append(svc.verify(req))
         check(svc.stats.staged_batches == staged + 1,
               f"request {len(results) - 1} did not take the pool-first route")
+        check(svc.stats.walked_batches == walked + 1,
+              f"request {len(results) - 1} was not encoded by the native walk")
     torch.cuda.synchronize()
     serve_s = time.time() - t0
     check(svc.pack(requests[0]).block.is_pinned(), "the pool-first block is not page-locked")

@@ -354,7 +354,7 @@ def test_service_stages_each_request_in_page_locked_memory(dev):
         res = svc.verify(req)
         for g, w in zip((res.status, res.values, res.value_lens), want):
             np.testing.assert_array_equal(g, w[:len(req)].cpu().numpy())
-    assert svc.stats.staged_batches == len(requests)
+    assert svc.stats.staged_batches == svc.stats.walked_batches == len(requests)
 
 
 # The walk kernel's three ways of holding node rows (csrc/mpt_walk.cu):

@@ -37,6 +37,7 @@ from zk_state_proofs_tpu_torch.oracle import MissingKeyError, TrieError
 from zk_state_proofs_tpu_torch.ops import keccak_cuda
 from zk_state_proofs_tpu_torch.ops import mpt as tmpt
 from zk_state_proofs_tpu_torch.utils.config import BucketConfig
+from zk_state_proofs_tpu_torch import native as port_native
 from zk_state_proofs_tpu_torch.models.service import _PoolFirstProofs
 from zk_state_proofs_tpu_torch.witness.pack import PackingError
 from zk_state_proofs_tpu_torch.witness.pack import pack_proofs as port_pack_proofs
@@ -276,6 +277,35 @@ def _hold_pool_first(got, want):
         np.testing.assert_array_equal(g, w, err_msg=k)
 
 
+def _hold_walk(svc, req):
+    """The native walk of req's padded entries into the service's staging
+    against encode_entries, byte for byte."""
+    padded = svc._padded(req)
+    got = port_native.walk_entries(padded, svc._staging)
+    want = port_native.encode_entries(padded)
+    assert got is not None
+    for g, w in zip(got, want):
+        w = np.frombuffer(w, dtype=np.uint8) if isinstance(w, bytes) else w
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+def _passed(svc, req, staging=None) -> _PoolFirstProofs:
+    """req's padded entries walked into `staging` (encode_entries without
+    one, or where the walk cannot read them), then the native pass into
+    a block of its own."""
+    layout, nbytes = svc._pool_first
+    packed = _PoolFirstProofs(torch.empty(nbytes, dtype=torch.uint8), layout)
+    bk = svc.bucket
+    padded = svc._padded(req)
+    encoded = port_native.walk_entries(padded, staging) if staging is not None else None
+    if encoded is None:
+        encoded = port_native.encode_entries(padded)
+    port_native.pack_pool_native(encoded, bk.max_nodes, bk.node_len, bk.key_nibbles,
+                                 packed.arrays)
+    return packed
+
+
 def test_batch_verifier_matches_jax_service():
     entries, _ = account_entries(96)
     proto = BatchVerifier(BucketConfig.account(), batch_size=64, device="cpu")
@@ -310,8 +340,8 @@ def test_batch_verifier_matches_jax_service():
     assert (got.status[:3] == tmpt.INVALID).all()
     assert tsvc.stats.batches == 3 and tsvc.stats.proofs == 64 + 26 + 7
     assert tsvc.stats.found == jsvc.stats.found
-    # every request took the pool-first route
-    assert tsvc.stats.staged_batches == 3
+    # every request took the pool-first route, encoded by the native walk
+    assert tsvc.stats.staged_batches == tsvc.stats.walked_batches == 3
     # its pass equals the dense packer on each request and on a trie whose nodes
     # hold inline (< 32 B) children, and raises the packer's errors: a
     # 13-node proof, a 577-byte node, a pool past the pinned rows
@@ -322,6 +352,7 @@ def test_batch_verifier_matches_jax_service():
     inline = [(t.root_hash(), t.get_proof(k), k) for k in keys[:16]]
     for req in requests + [inline]:
         _hold_pool_first(tsvc.pack(req), _packed_dense(tsvc, req))
+        _hold_walk(tsvc, req)
     rng = np.random.default_rng(5)
     root, key = entries[0][0], entries[0][2]
     for req in ([(root, [b"\x80"] * 13, key)], [(root, [b"\x01" * 577], key)],
@@ -357,6 +388,143 @@ def test_batch_verifier_matches_jax_service():
     np.testing.assert_array_equal(got.values, served[2].values)
     assert msvc.stats.staged_batches == plain.stats.staged_batches == 0
     assert msvc._pool_first is None and plain._pool_first is None
+
+
+@pytest.fixture(scope="module")
+def walk_service():
+    """A warm CPU service (pool first, the native walk) and a 26-proof
+    request of bytes in tuples and lists, padded to its 64 rows."""
+    entries, _ = account_entries(96)
+    svc = BatchVerifier(BucketConfig.account(), batch_size=64, device="cpu")
+    svc.warmup(entries[:64])
+    assert svc._staging is not None
+    return svc, entries[64:90]
+
+
+class _Bytes(bytes):
+    pass
+
+
+# each form of a request's objects: the walk reads lists and tuples of
+# exactly-bytes objects in place; anything else is encoded by encode_entries
+_FORMS = {
+    "bytes": (True, lambda req: req),
+    "tuple_proofs": (True, lambda req: [(r, tuple(p), k) for r, p, k in req]),
+    "list_entries": (True, lambda req: [[r, p, k] for r, p, k in req]),
+    "bytearray_node": (False, lambda req: req[:3] + [
+        (req[3][0], req[3][1][:-1] + [bytearray(req[3][1][-1])], req[3][2])] + req[4:]),
+    "memoryview_node": (False, lambda req: req[:-1] + [
+        (req[-1][0], [memoryview(n) for n in req[-1][1]], req[-1][2])]),
+    "bytes_subclass_root": (False, lambda req: [(_Bytes(req[0][0]),) + req[0][1:]] + req[1:]),
+    "no_walk": (False, lambda req: req),
+}
+
+
+@pytest.mark.parametrize("form", list(_FORMS))
+def test_service_walk_reads_bytes_in_place_else_encodes(walk_service, form, monkeypatch):
+    """Each form of a request packs to the arrays of encode_entries and
+    the native pass (and of the dense packer), and verifies to the same
+    answers; walked_batches counts the requests the walk encoded."""
+    svc, req = walk_service
+    walks, make = _FORMS[form]
+    if form == "no_walk":  # as where Python.h or g++ is missing
+        monkeypatch.setattr(port_native, "_walk", False)
+        svc = BatchVerifier(BucketConfig.account(), batch_size=64, pool_rows=svc.pool_rows,
+                            device="cpu")
+        svc.warmup(req)
+        assert svc._staging is None and svc._pool_first is not None
+    want = svc.verify(req)
+    got_req = make(req)
+    packed = svc.pack(got_req)
+    assert packed.walked is walks
+    _hold_pool_first(packed, _passed(svc, got_req))
+    _hold_pool_first(svc.pack(got_req), _packed_dense(svc, req))
+    before = svc.stats.walked_batches, svc.stats.staged_batches
+    got = svc.verify(got_req)
+    assert svc.stats.walked_batches == before[0] + walks
+    assert svc.stats.staged_batches == before[1] + 1
+    for f in ("status", "values", "value_lens"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def test_service_walk_staging_takes_turns_under_threads(walk_service):
+    """More threads than cores pack distinct requests through one
+    service's staging at once, the interpreter switching threads every
+    microsecond: each packs its own request's arrays."""
+    svc, req = walk_service
+    reqs = [req[i:] for i in range(16)]
+    want = [_passed(svc, r) for r in reqs]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(24) as workers:
+            futures = [workers.submit(svc.pack, r) for r in reqs * 4]
+            got = [f.result(timeout=120) for f in futures]
+    finally:
+        sys.setswitchinterval(interval)
+    for g, w in zip(got, want * 4):
+        assert g.walked
+        _hold_pool_first(g, w)
+
+
+def _refused(req, rng):
+    """Ten entries of req with entry 5 (and entry 8) past the bucket, in
+    the ways each error case names."""
+    root, key = req[0][0], req[0][2]
+    deep = (root, [b"\x80"] * 13, key)
+    wide = (root, [b"\x01" * 577], key)
+    cases = {
+        "root31": req[:5] + [(root[:31],) + req[5][1:]] + req[6:10],
+        "nodes13": req[:5] + [deep] + req[6:8] + [wide] + req[9:10],
+        "node577": req[:5] + [wide] + req[6:8] + [deep] + req[9:10],
+        "key_past_nibbles": req[:5] + [(root, req[5][1], key + b"\x01")] + req[6:10],
+        # a root error wins over an earlier proof past the bucket, as in
+        # encode_entries and the pass; an unreadable entry after it falls back
+        "break_then_root31": req[:5] + [deep] + req[6:8] + [(root[:31],) + req[8][1:]],
+        "break_then_bytearray": req[:5] + [deep] + req[6:8] + [
+            (root, [bytearray(n) for n in req[8][1]], key)],
+        "pool_past_rows": [(root, [rng.bytes(100) for _ in range(12)], key)] * 4 + [
+            (root, [rng.bytes(100) for _ in range(12)], e[2]) for e in (req * 3)[:60]],
+    }
+    return cases
+
+
+@pytest.mark.parametrize("case", ["root31", "nodes13", "node577", "key_past_nibbles",
+                                  "break_then_root31", "break_then_bytearray",
+                                  "pool_past_rows"])
+def test_service_walk_refuses_as_the_packers_do(walk_service, case):
+    """A request past the bucket, or with a root not 32 bytes long, raises
+    the PackingError of encode_entries and the native pass (and the dense
+    packer's, where it checks), naming the same first proof, and the walk
+    writes nothing past its staging."""
+    svc, req = walk_service
+    bad = _refused(req, np.random.default_rng(5))[case]
+    staging = port_native.EntryStaging(*svc._staging.bucket)
+    fences = {}
+    for name, a in staging.arrays.items():
+        fence = np.full(a.nbytes + 4096, 0xA5, dtype=np.uint8)
+        staging.arrays[name] = fence[:a.nbytes].view(a.dtype)
+        fences[name] = (fence, a.nbytes)
+    with pytest.raises(PackingError) as want:
+        _passed(svc, bad)
+    if case not in ("root31", "break_then_root31"):  # the dense packer reads no root
+        with pytest.raises(PackingError) as dense:
+            _packed_dense(svc, bad)
+        assert str(dense.value) == str(want.value)
+    else:
+        assert str(want.value) == "root must be 32 bytes"
+    if case == "break_then_bytearray":  # encode_entries raises for it
+        assert port_native.walk_entries(svc._padded(bad), staging) is None
+    before = svc.stats.walked_batches, svc.stats.staged_batches
+    with pytest.raises(PackingError) as got:
+        _passed(svc, bad, staging)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(PackingError) as served:
+        svc.verify(bad)
+    assert str(served.value) == str(want.value)
+    assert (svc.stats.walked_batches, svc.stats.staged_batches) == before
+    for name, (fence, n) in fences.items():
+        assert (fence[n:] == 0xA5).all(), name
 
 
 def test_packed_to_tensors_roundtrip(headline_256):

@@ -10,15 +10,19 @@ them; any other batch takes the unsegmented route, with identical results.
 Pool-first packing: where the native library loads, a warm service with
 no mesh and with dedup packs a batch by one native pass straight from its
 entries into its unique-node pool (`native.pack_pool_native`), written
-into one host block, page-locked on a card. A request copies that block
-to the device in one copy; the device gathers the per-proof node table
-from the pool. No dense [B, D, N] table is built on the host or copied.
-Any other service packs the dense table and copies it with
-`packed_to_tensors`.
+into one host block, page-locked on a card. The pass reads the entries as
+one native walk (`native.walk_entries`) wrote them into host staging the
+service allocates once, at warm-up; where the walk does not load or
+cannot read a request's objects in place, as `native.encode_entries`
+joins them. A request copies that block to the device in one copy; the
+device gathers the per-proof node table from the pool. No dense
+[B, D, N] table is built on the host or copied. Any other service packs
+the dense table and copies it with `packed_to_tensors`.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from functools import cached_property
@@ -48,6 +52,7 @@ class ServiceStats:
     invalid: int = 0
     seconds: float = 0.0
     staged_batches: int = 0  # requests served by the pool-first route
+    walked_batches: int = 0  # of those, requests encoded by the native walk
 
     @property
     def proofs_per_sec(self) -> float:
@@ -80,7 +85,10 @@ class _PoolFirstProofs(PackedProofs):
     For a CUDA device the block is page-locked, from PyTorch's caching
     host allocator, which hands a block out again only once the copies
     recorded on it have ended: one request's block is the next one's,
-    allocated at warm-up, and is never rewritten under a copy in flight."""
+    allocated at warm-up, and is never rewritten under a copy in flight.
+    `walked`: the entries were encoded by the native walk."""
+
+    walked = False
 
     def __init__(self, block: torch.Tensor, layout):
         self.block, self.layout = block, layout
@@ -140,7 +148,8 @@ class BatchVerifier:
 
     Once warm, without a mesh, with dedup and with the native library,
     `pack` packs pool first and `verify` copies only the pool (the
-    module's docstring; `stats.staged_batches` counts those requests).
+    module's docstring; `stats.staged_batches` counts those requests,
+    `stats.walked_batches` those of them the native walk encoded).
     """
 
     def __init__(self, bucket: BucketConfig, batch_size: int = 4096,
@@ -161,6 +170,8 @@ class BatchVerifier:
         self.stats = ServiceStats()
         self._warm = False
         self._pool_first = None  # (layout, bytes) of its blocks, set by warmup
+        self._staging = None  # native.EntryStaging of the walk, set by warmup
+        self._staging_lock = threading.Lock()  # one walk and pass at a time
 
     # -- packing ---------------------------------------------------------
     def _padded(self, entries) -> list:
@@ -201,14 +212,20 @@ class BatchVerifier:
         of `pack_proofs(entries).pool(min_rows=pool_rows)` and its
         `pool_hints()`, with the same PackingErrors."""
         (layout, nbytes), bk = self._pool_first, self.bucket
-        with span("zkp.pack.proofs"):
-            encoded = native.encode_entries(entries)
-        with span("zkp.pack.pool"):
-            block = torch.empty(nbytes, dtype=torch.uint8,
-                                pin_memory=self.device.type == "cuda")
-            packed = _PoolFirstProofs(block, layout)
-            native.pack_pool_native(encoded, bk.max_nodes, bk.node_len, bk.key_nibbles,
-                                    packed.arrays)
+        with self._staging_lock:
+            with span("zkp.pack.proofs"):
+                encoded = (native.walk_entries(entries, self._staging)
+                           if self._staging is not None else None)
+                walked = encoded is not None
+                if not walked:
+                    encoded = native.encode_entries(entries)
+            with span("zkp.pack.pool"):
+                block = torch.empty(nbytes, dtype=torch.uint8,
+                                    pin_memory=self.device.type == "cuda")
+                packed = _PoolFirstProofs(block, layout)
+                native.pack_pool_native(encoded, bk.max_nodes, bk.node_len,
+                                        bk.key_nibbles, packed.arrays)
+        packed.walked = walked
         return packed
 
     # -- lifecycle -------------------------------------------------------
@@ -242,6 +259,10 @@ class BatchVerifier:
                 and native.available()):
             self._pool_first = _pool_first_layout(self.batch_size, self.bucket,
                                                   self.pool_rows)
+            if native.walk_available():
+                bk = self.bucket
+                self._staging = native.EntryStaging(self.batch_size, bk.max_nodes,
+                                                    bk.node_len, bk.key_nibbles)
         packed = self.pack(example_entries)
         verify = self._verify_pool_first if self._pool_first is not None else self._verify_packed
         verify(packed)
@@ -383,4 +404,5 @@ class BatchVerifier:
         s.seconds += dt
         if self._pool_first is not None:
             s.staged_batches += 1
+            s.walked_batches += packed.walked
         return res

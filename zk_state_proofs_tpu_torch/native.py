@@ -1,13 +1,21 @@
 """ctypes bindings for the native host runtime (`native/zkp_host.cpp` and
-the port's own `pool_pack.cpp`).
+the port's own `pool_pack.cpp`), and for the serving layer's entries walk
+(`entry_walk.cpp`).
 
-The port's own counterpart of `zk_state_proofs_tpu.native`. Both C++
+The port's own counterpart of `zk_state_proofs_tpu.native`. Both runtime
 sources are compiled with g++ into one library at first use, on the
 machine that runs it, into the gitignored `_kernels_build/` beside the
 package (keyed on a hash of the sources and flags). The build is portable
 (no `-march=native`), so a library built on one host runs on another.
 Without g++ or the sources every caller takes its pure-Python fallback:
 same results, slower host packing and hashing.
+
+The entries walk reads Python objects through the C API, so it is a
+library of its own, built against the running interpreter's headers
+(keyed on their path and the interpreter's version and ABI, so it never
+loads into another Python) and called through `ctypes.PyDLL`, holding
+the interpreter lock. Without `Python.h` or g++ it does not load, and
+its caller encodes with `encode_entries`.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sys
+import sysconfig
 from itertools import chain
 from pathlib import Path
 
@@ -23,28 +33,31 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent
 _SRCS = (_PKG.parent / "native" / "zkp_host.cpp", _PKG / "pool_pack.cpp")
+_WALK_SRC = _PKG / "entry_walk.cpp"
 BUILD_DIR = _PKG / "_kernels_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
 _load_failed = False
+_walk = None  # zkp_walk_entries once loaded; False where it cannot build or load
 
 
-def _build() -> Path | None:
-    """Path of the built library (building it if needed), or None."""
-    if not all(src.exists() for src in _SRCS):
+def _build(stem: str = "host", srcs=_SRCS, flags=CXX_FLAGS, salt: str = "") -> Path | None:
+    """Path of libzkp_<stem>.so built from `srcs` with g++ `flags` and
+    keyed on them and `salt` (building it if needed), or None."""
+    if not all(src.exists() for src in srcs):
         return None
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for src in _SRCS:
+    h = hashlib.sha256((" ".join(flags) + salt).encode())
+    for src in srcs:
         h.update(src.read_bytes())
-    out_dir = BUILD_DIR / f"host-{h.hexdigest()[:16]}"
-    so = out_dir / "libzkp_host.so"
+    out_dir = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}"
+    so = out_dir / f"libzkp_{stem}.so"
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libzkp_host.{os.getpid()}.tmp.so"
+    tmp = out_dir / f"libzkp_{stem}.{os.getpid()}.tmp.so"
     try:
-        subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, _SRCS)],
+        subprocess.run(["g++", *flags, "-o", str(tmp), *map(str, srcs)],
                        check=True, capture_output=True, timeout=300)
     except (OSError, subprocess.SubprocessError):
         return None
@@ -191,6 +204,96 @@ def encode_entries(entries) -> tuple:
             _offsets(keys))
 
 
+def _walk_entries_fn():
+    """zkp_walk_entries (entry_walk.cpp) through ctypes.PyDLL, or None
+    where Python.h or g++ is missing or the library does not load."""
+    global _walk
+    if _walk is None:
+        _walk = False
+        include = sysconfig.get_paths()["include"]
+        so = None
+        if Path(include, "Python.h").exists():
+            so = _build("walk", (_WALK_SRC,), (*CXX_FLAGS, f"-I{include}"),
+                        salt=f"{sys.version} {sysconfig.get_config_var('SOABI')}")
+        try:
+            lib = ctypes.PyDLL(str(so)) if so is not None else None
+        except OSError:
+            lib = None
+        if lib is not None:
+            fn = lib.zkp_walk_entries
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.py_object] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+            _walk = fn
+    return _walk or None
+
+
+def walk_available() -> bool:
+    return _walk_entries_fn() is not None
+
+
+class EntryStaging:
+    """Host buffers that walk_entries writes a batch's entries into: the
+    arrays of encode_entries for up to `batch` entries within the bucket
+    (node_blob, node_offsets, counts, roots, key_blob, key_offsets, flat
+    and C-contiguous), allocated and touched once, so a walk faults no
+    page in."""
+
+    FIELDS = ("node_blob", "node_offsets", "counts", "roots", "key_blob", "key_offsets")
+
+    def __init__(self, batch: int, max_nodes: int, node_len: int, key_nibbles: int):
+        self.bucket = (batch, max_nodes, node_len, key_nibbles)
+        self.arrays = {}
+        for name, dtype, size in self.layout(*self.bucket):
+            a = np.empty(size, dtype=dtype)
+            a.fill(0)
+            self.arrays[name] = a
+
+    @classmethod
+    def layout(cls, batch: int, max_nodes: int, node_len: int, key_nibbles: int) -> tuple:
+        """(name, dtype, elements) of each buffer, in FIELDS order."""
+        u8, i32, i64 = np.dtype(np.uint8), np.dtype(np.int32), np.dtype(np.int64)
+        return tuple(zip(cls.FIELDS, (u8, i64, i32, u8, u8, i64), (
+            batch * max_nodes * node_len, batch * max_nodes + 1, batch, batch * 32,
+            batch * (key_nibbles // 2), batch + 1)))
+
+
+def walk_entries(entries, staging: EntryStaging):
+    """encode_entries(entries), written by one native walk into
+    `staging`: its arrays' views, equal to encode_entries's byte for
+    byte. None where the walk does not load (walk_available) or cannot
+    read an object in place (an entry other than a 3-item list or tuple,
+    a proof other than a list or tuple, a root, key or node other than
+    exactly bytes): encode_entries takes those. Raises the PackingError
+    that pack_pool_native raises on encode_entries's arrays for a root
+    not 32 bytes long or a proof past the bucket, writing nothing past
+    the staging."""
+    from .witness.pack import PackingError
+
+    fn = _walk_entries_fn()
+    if fn is None:
+        return None
+    batch, max_nodes, node_len, key_nibbles = staging.bucket
+    a = staging.arrays
+    for name, dtype, size in staging.layout(*staging.bucket):
+        if a[name].dtype != dtype or a[name].shape != (size,) or not a[name].flags.c_contiguous:
+            raise ValueError(f"{name}: {a[name].dtype} {a[name].shape} is not a "
+                             f"C-contiguous {dtype} ({size},)")
+    rc = fn(entries, max_nodes, node_len, key_nibbles, batch,
+            *(_ptr(a[name]) for name in staging.FIELDS))
+    if rc == -2:
+        return None
+    if rc == -1:
+        raise PackingError("root must be 32 bytes")
+    if rc > 0:
+        raise _bucket_error(rc, max_nodes, node_len, key_nibbles)
+    b = len(entries)
+    counts, key_offsets = a["counts"][:b], a["key_offsets"][:b + 1]
+    t = int(counts.sum())
+    node_offsets = a["node_offsets"][:t + 1]
+    return (a["node_blob"][:node_offsets[t]], node_offsets, counts, a["roots"][:32 * b],
+            a["key_blob"][:key_offsets[b]], key_offsets)
+
+
 def _bucket_error(rc: int, max_nodes: int, node_len: int, key_nibbles: int):
     from .witness.pack import PackingError
 
@@ -200,6 +303,11 @@ def _bucket_error(rc: int, max_nodes: int, node_len: int, key_nibbles: int):
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _cbuf(data):
+    """char* to `data`: bytes, or a C-contiguous uint8 array (walk_entries)."""
+    return ctypes.c_char_p(data if isinstance(data, bytes) else data.ctypes.data)
 
 
 def pack_proofs_native(entries, max_nodes: int, node_len: int, key_nibbles: int):
@@ -244,8 +352,8 @@ def pool_pass_layout(batch: int, max_nodes: int, node_len: int, key_nibbles: int
 def pack_pool_native(encoded, max_nodes: int, node_len: int, key_nibbles: int,
                      out: dict) -> int:
     """Pool-first packing (zkp_pack_pool): `encoded` entries
-    (encode_entries) straight into `out`, C-contiguous NumPy arrays laid
-    out as pool_pass_layout gives them for the batch and R =
+    (encode_entries or walk_entries) straight into `out`, C-contiguous
+    NumPy arrays laid out as pool_pass_layout gives them for the batch and R =
     out["pool_nodes"].shape[0] pool rows, every byte of which it writes:
     byte for byte `witness.pack_proofs(entries, max_nodes, node_len,
     key_nibbles).pool(min_rows=R)`, its `pool_hints()` and its per-proof
@@ -268,8 +376,8 @@ def pack_pool_native(encoded, max_nodes: int, node_len: int, key_nibbles: int,
                              f"{dtype} {shape}")
     used = ctypes.c_int32(0)
     rc = get_lib().zkp_pack_pool(
-        ctypes.c_char_p(node_blob), _ptr(node_offsets), _ptr(counts),
-        ctypes.c_char_p(roots_blob), ctypes.c_char_p(key_blob), _ptr(key_offsets),
+        _cbuf(node_blob), _ptr(node_offsets), _ptr(counts),
+        _cbuf(roots_blob), _cbuf(key_blob), _ptr(key_offsets),
         b, max_nodes, node_len, key_nibbles, pool_rows,
         *(_ptr(out[name]) for name, _, _ in layout), ctypes.byref(used),
     )
